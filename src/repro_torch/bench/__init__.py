@@ -1,0 +1,36 @@
+"""repro_torch.bench — the benchmark subsystem of the port.
+
+Every paper-table benchmark registers with :mod:`repro_torch.core.registry`
+(``@bench.register`` with paper ref + quick/full sweep grids), and the runner
+executes them into one versioned JSON schema (:mod:`.schema`), the same
+schema v1 as ``repro.bench``:
+
+    python -m repro_torch.bench list
+    python -m repro_torch.bench run dissect --out results.json
+    python -m repro_torch.bench run dissect --device cpu
+"""
+from repro_torch.core.registry import BenchSpec, register
+
+from .runner import load_suites, run_benchmarks, select
+from .schema import (
+    SCHEMA_VERSION,
+    BenchRecord,
+    BenchResult,
+    EnvFingerprint,
+    SchemaError,
+    validate_result,
+)
+
+__all__ = [
+    "SCHEMA_VERSION",
+    "BenchRecord",
+    "BenchResult",
+    "BenchSpec",
+    "EnvFingerprint",
+    "SchemaError",
+    "load_suites",
+    "register",
+    "run_benchmarks",
+    "select",
+    "validate_result",
+]

@@ -17,11 +17,18 @@ Phases, in order; any failure exits non-zero before the final line:
    kernels; the fitted model is checked and compared with the H100 datasheet;
 5. ``probe_block_shape_bandwidth`` (the Ch. 1 axpy experiment), counted the
    same way, and the access-width sweep of Fig 1.1 at an HBM-sized array;
-6. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
+6. the kernel layer's bandwidth entry points ``api.stream_copy`` and
+   ``api.strided_reduce`` on 8 MiB of ones (exact sums), counted the same way;
+7. the dense LM at gemma-2b's full width and depth, ``attn_impl="pallas"``,
+   through ``build_model(cfg).prefill`` / ``decode_step``: 4 prompts of 1000
+   tokens, 32 greedy steps, then one prompt of 2048; flash_attention must
+   launch once per layer per prefill; the same requests through the plain
+   ``attn_impl="blockwise"`` path are the reference;
+8. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Rates used for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s HBM,
-67 TFLOP/s fp32 outside the tensor cores.
+67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16 dense on them.
 """
 from __future__ import annotations
 
@@ -38,13 +45,21 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
-KERNELS = ("pchase", "stream_reduce", "axpy", "matmul")
+BF16_FLOPS = 989e12
+KERNELS = ("pchase", "stream_copy", "stream_reduce", "strided_reduce", "axpy", "matmul",
+           "flash_attention")
 SOURCES = {
     "pchase": ("src/repro_torch/kernels/csrc/pchase.cu", "src/repro/kernels/pchase.py:22"),
+    "stream_copy": ("src/repro_torch/kernels/csrc/membw.cu", "src/repro/kernels/membw.py:19"),
     "stream_reduce": ("src/repro_torch/kernels/csrc/membw.cu", "src/repro/kernels/membw.py:39"),
+    "strided_reduce": ("src/repro_torch/kernels/csrc/membw.cu", "src/repro/kernels/membw.py:67"),
     "axpy": ("src/repro_torch/kernels/csrc/axpy.cu", "src/repro/kernels/axpy.py:16"),
     "matmul": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:58"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:49"),
 }
+LM_BATCH, LM_PROMPT, LM_STEPS, LM_LONG = 4, 1000, 32, 2048
+MEMBW_SHAPE = (65536, 512)  # 128 MiB of fp32: the probes' largest footprint
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -165,6 +180,9 @@ def kernel_checks(torch, dev) -> dict:
         "bound_ms": max(2 * nn**3 / FP32_FLOPS, 3 * nn * nn * 4 / HBM_BPS) * 1e3,
         "bound_by": "operations",
     }
+    del a, b, ab, bb
+    rows.update(membw_checks(torch, dev, gen))
+    rows["flash_attention"] = flash_checks(torch, dev, gen)
     for name, r in rows.items():
         print(f"check {name}: {r['shape']}; max_abs_err {r['max_abs_err']} ({r['tolerance']}); "
               f"kernel {r['ms']} ms, plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
@@ -172,6 +190,97 @@ def kernel_checks(torch, dev) -> dict:
     print(f"check pchase latency chain at the datasheet's {rows['pchase']['latency_level']} "
           f"latency: {rows['pchase']['latency_bound_ms']} ms (spec-sheet figure)", flush=True)
     return rows
+
+
+def membw_checks(torch, dev, gen) -> dict:
+    """stream_copy and strided_reduce at the probes' largest footprint."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.membw import stream_copy, strided_reduce
+
+    rows = {}
+    x = torch.rand(MEMBW_SHAPE, generator=gen, device=dev)
+    got = stream_copy(x)
+    if not torch.equal(got, x):
+        raise AssertionError("stream_copy: the copy is not bit for bit")
+    for dt in (torch.bfloat16, torch.int32):
+        xd = (x * 1000).to(dt)
+        if not torch.equal(stream_copy(xd), xd):
+            raise AssertionError(f"stream_copy {dt}: the copy is not bit for bit")
+    nbytes = x.numel() * 4
+    rows["stream_copy"] = {
+        "shape": "(65536, 512) float32, 128 MiB", "tolerance": "exact", "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: stream_copy(x), 20),
+        "plain_ms": time_ms(torch, lambda: ref.copy_ref(x), 20),
+        "library_ms": time_ms(torch, lambda: x.clone(), 20),
+        "bound_ms": 2 * nbytes / HBM_BPS * 1e3, "bound_by": "bytes",
+    }
+    errs, per_stride = [], {}
+    for stride in (2, 3, 128):
+        want = ref.strided_reduce_blocked_ref(x, stride, 64)
+        errs.append(check_close(f"strided_reduce stride {stride}",
+                                strided_reduce(x, stride=stride), want, 1e-4, 0.0))
+        sel_rows = MEMBW_SHAPE[0] // 64 * -(-64 // stride)
+        per_stride[stride] = {
+            "ms": time_ms(torch, lambda s=stride: strided_reduce(x, stride=s), 20),
+            "plain_ms": time_ms(torch, lambda s=stride: ref.strided_reduce_blocked_ref(x, s, 64), 20),
+            "library_ms": (time_ms(torch, lambda s=stride: x[::s].sum(), 20)
+                           if 64 % stride == 0 else None),
+            "bound_ms": (sel_rows * MEMBW_SHAPE[1] * 4 + 4) / HBM_BPS * 1e3,
+        }
+        print(f"check strided_reduce stride {stride}: {per_stride[stride]}", flush=True)
+    rows["strided_reduce"] = {
+        "shape": "(65536, 512) float32, block_rows 64, stride 2 (also 3, 128)",
+        "tolerance": "rtol 1e-4 against the blocked plain version", "max_abs_err": max(errs),
+        **per_stride[2], "bound_by": "bytes",
+    }
+    return rows
+
+
+def flash_checks(torch, dev, gen) -> dict:
+    """flash_attention at the LM's shapes: gemma-2b's 8 query heads over the
+    expanded KV head, hd 256, bf16; prompts of 1000 (bk 1000, Sq padded to
+    1024) and 2048 (bq 128, bk 1024) at BH 32; fp32 at S 256."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    def qkv(bh, sq, skv, dtype):
+        return [torch.randn((bh, s, 256), generator=gen, device=dev).to(dtype)
+                for s in (sq, skv, skv)]
+
+    def check(dtype, s, bq, bk, tol):
+        sq_pad = -(-s // bq) * bq
+        q, k, v = qkv(32, sq_pad, s, dtype)
+        got = flash_attention_cuda(q, k, v, causal=True, bq=bq, bk=bk, kv_len=s)
+        want = ref.flash_attention_ref(q, k, v, causal=True, kv_len=s)
+        err = check_close(f"flash_attention {dtype} S {s}", got[:, :s].float(),
+                          want[:, :s].float(), tol, tol)
+        return err, (q, k, v)
+
+    err32, _ = check(torch.float32, 256, 128, 256, 1e-4)
+    err2k, _ = check(torch.bfloat16, 2048, 128, 1024, 2e-2)
+    err, (q, k, v) = check(torch.bfloat16, LM_PROMPT, 128, 1000, 2e-2)
+    bh, s, hd = 32, LM_PROMPT, 256
+    # SDPA's fused kernels take (B, H, S, hd): the flattened layout viewed so
+    q4, k4, v4 = (t.view(LM_BATCH, 8, -1, hd) for t in (q[:, :s].contiguous(), k, v))
+    row = {
+        "shape": "q (32, 1024, 256) bf16 (Sq 1000 padded to bq 128), k/v (32, 1000, 256), causal",
+        "tolerance": "bf16 rtol 2e-2, atol 2e-2 at S 1000 and 2048; fp32 1e-4 at S 256",
+        "max_abs_err": err, "max_abs_err_bf16_s2048": err2k, "max_abs_err_fp32_s256": err32,
+        "ms": time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True, bq=128, bk=1000,
+                                                          kv_len=s), 10),
+        "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                                   kv_len=s), 5),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 10),
+    }
+    flops = 2 * bh * s * s * hd  # causal: half of the two full products' 4*BH*Sq*Skv*hd
+    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
+    by_ops, by_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+    row["bound_ms"] = max(by_ops, by_bytes)
+    row["bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
+    return row
 
 
 def main_path(torch, dev) -> tuple:
@@ -261,6 +370,112 @@ def axpy_path(torch, dev) -> dict:
     return counts
 
 
+def entry_point_path(torch, dev) -> dict:
+    """Phase 6: the kernel layer's bandwidth entry points, as a user calls them."""
+    from repro_torch.kernels import _util
+    from repro_torch.kernels import api
+
+    rows, cols = 4096, 512  # 8 MiB of ones: every partial sum stays below 2^24, so exact
+    x = torch.ones((rows, cols), device=dev)
+    _util.reset_launch_counts()
+    out = api.stream_copy(x)
+    sums = {s: float(api.strided_reduce(x, stride=s)[0, 0]) for s in (1, 2, 3, 128)}
+    torch.cuda.synchronize()
+    counts = _util.launch_counts()
+    want = {s: float(rows // 64 * -(-64 // s) * cols) for s in sums}  # ones: a count of elements
+    if not torch.equal(out, x) or sums != want:
+        raise AssertionError(f"entry points: strided sums {sums}, expected {want}")
+    for k in ("stream_copy", "strided_reduce"):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"{k} kernel was not launched through kernels.api")
+    print(f"entry points api.stream_copy / api.strided_reduce: launches {counts}", flush=True)
+    return counts
+
+
+def lm_path(torch, dev) -> dict:
+    """Phase 7: gemma-2b, full width and depth, through build_model's entry
+    points with the flash kernel; the plain blockwise path is the reference."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _util
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+
+    cfg = get_config("gemma-2b").replace(attn_impl="pallas")
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    print(f"lm: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} params "
+          f"({params['embed'].dtype}), init {time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    long_prompt = torch.randint(0, cfg.vocab_size, (1, LM_LONG), generator=gen, device=dev)
+
+    def serve(m):
+        """prefill, greedy decode, long prefill; wall times after a synchronize."""
+        out = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = m.prefill(params, {"tokens": prompts}, LM_PROMPT + LM_STEPS)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["last"] = last.float()
+        tok, toks = last.argmax(-1), []
+        t0 = time.perf_counter()
+        for i in range(LM_STEPS):
+            pos = torch.full((LM_BATCH,), LM_PROMPT + i, dtype=torch.int32, device=dev)
+            logits, cache = m.decode_step(params, cache, tok, pos)
+            tok = logits.argmax(-1)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        out["decode_s"] = time.perf_counter() - t0
+        out["tokens"] = torch.stack(toks, 1)
+        out["decode_logits"] = logits.float()
+        t0 = time.perf_counter()
+        out["long_last"] = m.prefill(params, {"tokens": long_prompt})[0].float()
+        torch.cuda.synchronize()
+        out["long_prefill_s"] = time.perf_counter() - t0
+        return out
+
+    plain_model = build_model(cfg.replace(attn_impl="blockwise"), device=dev)
+    with torch.inference_mode():
+        model.prefill(params, {"tokens": prompts[:1, :64]})  # warm-up: cuBLAS, kernel attributes
+        _util.reset_launch_counts()
+        run = serve(model)
+        counts = _util.launch_counts()
+        plain = serve(plain_model)
+    if counts != {"flash_attention": 2 * cfg.n_layers}:
+        raise AssertionError(f"lm: launches {counts}, expected flash_attention "
+                             f"{cfg.n_layers} per prefill, 2 prefills")
+    for key, shape in (("last", (LM_BATCH, cfg.padded_vocab)), ("long_last", (1, cfg.padded_vocab)),
+                       ("tokens", (LM_BATCH, LM_STEPS))):
+        if run[key].shape != shape:
+            raise AssertionError(f"lm: {key} has shape {tuple(run[key].shape)}, expected {shape}")
+    for key in ("last", "long_last", "decode_logits"):
+        if not torch.isfinite(run[key]).all():
+            raise AssertionError(f"lm: {key} is not finite")
+    rel = {k: float((run[k] - plain[k]).abs().max() / plain[k].abs().max())
+           for k in ("last", "long_last")}
+    same = float((run["tokens"] == plain["tokens"]).float().mean())
+    first_same = float((run["tokens"][:, 0] == plain["tokens"][:, 0]).float().mean())
+    res = {
+        "prefill_s": run["prefill_s"], "plain_prefill_s": plain["prefill_s"],
+        "prefill_tok_s": LM_BATCH * LM_PROMPT / run["prefill_s"],
+        "decode_s": run["decode_s"], "plain_decode_s": plain["decode_s"],
+        "decode_tok_s": LM_BATCH * LM_STEPS / run["decode_s"],
+        "long_prefill_s": run["long_prefill_s"], "plain_long_prefill_s": plain["long_prefill_s"],
+        "long_prefill_tok_s": LM_LONG / run["long_prefill_s"],
+        "rel_err_last_logits": rel["last"], "rel_err_long_last_logits": rel["long_last"],
+        "greedy_equal_share": same, "first_greedy_equal_share": first_same,
+        "launches": counts,
+    }
+    print("lm: " + json.dumps(res), flush=True)
+    if max(rel.values()) > 0.1:
+        raise AssertionError(f"lm: last logits differ from the plain path by {rel} of their max")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -283,8 +498,12 @@ def main() -> int:
     print(f"built {os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = kernel_checks(torch, dev)
+    torch.cuda.empty_cache()
     counts, _ = main_path(torch, dev)
     counts.update(axpy_path(torch, dev))
+    counts.update(entry_point_path(torch, dev))
+    torch.cuda.empty_cache()
+    counts.update(lm_path(torch, dev))
 
     print("kernels: " + " ".join(KERNELS))
     line = []

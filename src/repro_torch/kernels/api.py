@@ -36,6 +36,7 @@ from typing import Callable, Optional
 import torch
 
 from . import axpy as _axpy
+from . import flash_attention as _fa
 from . import matmul as _mm
 from . import membw as _bw
 from . import pchase as _pc
@@ -278,10 +279,10 @@ def _axpy_torch(x, y, alpha):
     return ref.axpy_ref(x, y, alpha)
 
 
-stream_copy = plain_op(
-    "stream_copy", tile_args=("block_rows", "block_cols"),
-    doc="HBM->SM->HBM round-trip bandwidth probe.",
-)
+@kernel_op("stream_copy", tile_args=("block_rows", "block_cols"))
+def stream_copy(x, *, block_rows=8, block_cols=512):
+    """HBM->SM->HBM round-trip bandwidth probe."""
+    return _bw.stream_copy(x, block_rows=block_rows, block_cols=block_cols)
 
 
 @stream_copy.defbackend("torch")
@@ -300,10 +301,14 @@ def _stream_reduce_torch(x):
     return ref.reduce_ref(x)
 
 
-strided_reduce = plain_op(
-    "strided_reduce", tile_args=("block_rows",),
-    doc="Sparse-access reduce probing load granularity (paper Tab 3.1).",
-)
+@kernel_op("strided_reduce", tile_args=("block_rows",))
+def strided_reduce(x, *, stride, block_rows=64):
+    """Sparse-access reduce probing load granularity (paper Tab 3.1).  The
+    kernel sums what the reference's Pallas kernel sums (the stride restarts
+    in every block of ``block_rows``); the ``torch`` backend is the
+    reference's oracle ``x[::stride]``, equal when ``stride`` divides
+    ``block_rows``."""
+    return _bw.strided_reduce(x, stride=stride, block_rows=block_rows)
 
 
 @strided_reduce.defbackend("torch")
@@ -339,10 +344,22 @@ def _matmul_torch(a, b, *, out_dtype=None):
     return ref.matmul_ref(a, b, out_dtype)
 
 
-flash_attention = plain_op(
-    "flash_attention", tile_args=("bq", "bk"),
-    doc="Blockwise-softmax attention; q/k/v in model layout (B, S, H, hd).",
-)
+@kernel_op("flash_attention", tile_args=("bq", "bk"))
+def flash_attention(q, k, v, *, causal=True, q_offset=0, bq=128, bk=128):
+    """Blockwise-softmax attention; q/k/v in model layout (B, S, H, hd).
+    As in the reference, Sq and Skv are zero-padded to the (clamped) block
+    sizes, the kernel masks keys past the true Skv, and the padded query
+    rows are sliced off."""
+    b, sq = q.shape[0], q.shape[1]
+    skv = k.shape[1]
+    bq_, bk_ = fit_block(bq, sq), fit_block(bk, skv)
+    # flatten_heads is a view when B == 1; the kernel takes contiguous rows
+    qf = pad_to_multiple(flatten_heads(q), bq_, 1).contiguous()
+    kf = pad_to_multiple(flatten_heads(k), bk_, 1).contiguous()
+    vf = pad_to_multiple(flatten_heads(v), bk_, 1).contiguous()
+    out = _fa.flash_attention_cuda(qf, kf, vf, causal=causal, q_offset=q_offset,
+                                   bq=bq_, bk=bk_, kv_len=skv)
+    return unflatten_heads(out[:, :sq], b)
 
 
 @flash_attention.defbackend("torch")

@@ -1,21 +1,29 @@
-// stream_reduce: fp32 sum of every element of x into one (1,1) checksum.
+// The streaming-bandwidth probes of src/repro/kernels/membw.py:
 //
-// Replaces src/repro/kernels/membw.py::_reduce_kernel (stream_reduce).
+//   stream_reduce   fp32 sum of every element of x into one (1,1) checksum;
+//                   replaces _reduce_kernel.
+//   stream_copy     out = x, any dtype, bit for bit; replaces _copy_kernel.
+//   strided_reduce  fp32 sum of the rows whose offset within their block of
+//                   block_rows rows is a multiple of stride; replaces
+//                   _strided_reduce_kernel, whose stride restarts in every block.
 //
-// Bound on the H100: bytes.  Each element is read once and the sum is one
-// add per element, far below the FP32 rate, so the floor is the array's size
-// over the bandwidth of the level that holds it (3.35 TB/s from HBM).
+// Bound on the H100: bytes.  Each element is read (and for the copy written)
+// once and the sum is one add per element, far below the FP32 rate, so the
+// floor is the bytes moved over the bandwidth of the level that holds them
+// (3.35 TB/s from HBM).  For strided_reduce the bytes are those of the rows
+// it sums.
 //
-// Design: the TPU kernel carries its sum across a sequential grid in one
-// (1,1) output block; Hopper runs blocks in parallel and in no order, so the
-// sum is two passes instead.  Pass 1 runs a grid sized by the wrapper (8
-// blocks of 256 threads per SM, enough loads in flight to cover HBM latency);
-// each thread streams 16-byte float4 loads in a grid-stride loop, four
-// independent loads per iteration, and the block writes one partial.  Pass 2
-// is one block that sums the partials.  Both passes add in a fixed order, so
-// the result is deterministic (atomics would not be).  The wrapper's
-// block_rows/block_cols keep the reference's meaning as the padding multiple;
-// the CTA tile here is the kernel's own.
+// Design: the TPU kernels walk a sequential grid of (block_rows, block_cols)
+// tiles and carry the sum from step to step in one (1,1) output block.
+// Hopper runs blocks in parallel and in no order, so each kernel here runs a
+// grid sized by the wrapper (8 blocks of 256 threads per SM, enough loads in
+// flight to cover HBM latency) over the whole array in a grid-stride loop
+// with 16-byte accesses.  The reductions take two passes: pass 1 writes one
+// partial per block, pass 2 is one block that sums the partials.  Both passes
+// add in a fixed order, so the result is deterministic (atomics would not
+// be).  The wrappers' block_rows/block_cols keep the reference's meaning (the
+// tile the shape must divide into, and for strided_reduce the block the
+// stride restarts in); the CTA tile is the kernel's own.
 #include "common.cuh"
 
 constexpr int kThreads = 256;
@@ -51,6 +59,69 @@ reduce_final(const float* partials, int n, float* out) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) v += partials[i];
   v = block_sum(v);
   if (threadIdx.x == 0) out[0] = v;
+}
+
+// Pass 1 of strided_reduce: one warp per selected row (coalesced along the
+// row), warps striding over the selected rows.  Selected row t is row
+// (t / per) * block_rows + (t % per) * stride, `per` selected rows in each
+// block.  VEC is 4 (float4 loads) when the row length allows.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+strided_partials(const float* x, int sel_rows, int cols, int per, int block_rows, int stride,
+                 float* partials) {
+  constexpr int kWarps = kThreads / 32;
+  const int vecs = cols / VEC;
+  const int lane = threadIdx.x & 31;
+  float a = 0.f;
+  for (int t = blockIdx.x * kWarps + (threadIdx.x >> 5); t < sel_rows; t += gridDim.x * kWarps) {
+    const long long row = static_cast<long long>(t / per) * block_rows + (t % per) * stride;
+    const float* xr = x + row * cols;
+    for (int c = lane; c < vecs; c += 32) {
+      if (VEC == 4) {
+        a += sum4(reinterpret_cast<const float4*>(xr)[c]);
+      } else {
+        a += xr[c];
+      }
+    }
+  }
+  const float v = block_sum(a);
+  if (threadIdx.x == 0) partials[blockIdx.x] = v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+copy_kernel(const uint4* x, uint4* out, long long n16, const unsigned char* xb,
+            unsigned char* ob, long long nbytes) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (long long i = tid; i < n16; i += step) out[i] = x[i];
+  const long long t = (n16 << 4) + tid;  // the nbytes % 16 trailing bytes
+  if (t < nbytes) ob[t] = xb[t];
+}
+
+extern "C" int repro_stream_copy(const void* x, long long nbytes, void* out, int blocks,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  copy_kernel<<<blocks, kThreads, 0, s>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(out), nbytes >> 4,
+      static_cast<const unsigned char*>(x), static_cast<unsigned char*>(out), nbytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_strided_reduce(const void* x, int sel_rows, int cols, int per,
+                                    int block_rows, int stride, void* partials, int blocks,
+                                    void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* pf = static_cast<float*>(partials);
+  if (cols % 4 == 0) {
+    strided_partials<4><<<blocks, kThreads, 0, s>>>(xf, sel_rows, cols, per, block_rows, stride, pf);
+  } else {
+    strided_partials<1><<<blocks, kThreads, 0, s>>>(xf, sel_rows, cols, per, block_rows, stride, pf);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_final<<<1, kFinalThreads, 0, s>>>(pf, blocks, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int repro_stream_reduce(const void* x, long long n, void* partials, int blocks,

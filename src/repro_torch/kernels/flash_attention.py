@@ -1,0 +1,69 @@
+"""Flash attention: blockwise online softmax with the running (m, l, acc)
+state kept on chip.
+
+The kernel (``csrc/flash_attention.cu``) replaces the Pallas ``_flash_kernel``
+of ``repro/kernels/flash_attention.py``.  One block of 256 threads owns 64
+query rows of one (batch*head) and loops over 64-key tiles staged in shared
+memory in the input dtype; scores, softmax state and the accumulator are
+fp32, on the FP32 pipes.  Tiles past the causal diagonal are never loaded.
+It is bound by operations at the model's shapes; the tensor cores
+(wgmma/TMA) and native GQA are later work (ROADMAP.md).
+
+The reference's ``saturation_check`` guard sentinel waits for the port of
+``kernels/guard.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _util, ref
+
+HEAD_DIMS = (64, 128, 256)  # the kernel's template instances
+_ARGTYPES = (
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_float,
+)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    q_offset: int = 0, bq: int = 128, bk: int = 128, kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """q (BH, Sq, hd), k/v (BH, Skv, hd), the head-flattened layout.
+
+    Sq and Skv must divide into ``bq`` and ``bk`` (the wrapper in
+    ``kernels.api`` pads them); ``kv_len``, the true key count, masks the
+    padded keys.  The output has q's shape and dtype.  On CUDA tensors this
+    launches the kernel; CPU tensors take the plain version.
+    """
+    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3:
+        raise ValueError(f"need q (BH,Sq,hd) and k/v (BH,Skv,hd), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    if k.shape[0] != bh or k.shape[2] != hd:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if sq % bq or skv % bk:
+        raise ValueError(f"Sq {sq} / Skv {skv} do not divide into bq {bq} / bk {bk}")
+    kv_len = skv if kv_len is None else kv_len
+    if not 0 <= kv_len <= skv:
+        raise ValueError(f"kv_len {kv_len} outside [0, {skv}]")
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise TypeError(f"q, k, v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    if q.dtype not in _util.DTYPE_CODES:
+        raise TypeError(f"flash_attention kernel takes float32/bfloat16/float16, got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _util.check_cuda_operand(name, t)
+    out = torch.empty_like(q)
+    _util.launch("flash_attention", "repro_flash_attention", _ARGTYPES, q.device,
+                 _util.DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), bh, sq, skv, kv_len, q_offset, int(causal), hd ** -0.5)
+    return out

@@ -1,14 +1,17 @@
 """Streaming-bandwidth probe kernels (paper §3.1/3.2/3.7 analogue).
 
+``stream_copy``: HBM->SM->HBM round trip (the write-allocate path).
 ``stream_reduce``: read-only scan accumulating a checksum — the analogue of
 the paper's l1_bw/l2_bw read benchmarks (the checksum plays the role of the
-paper's ``dsink``).  Its kernel (``csrc/membw.cu``) replaces the Pallas
-``_reduce_kernel`` of ``repro/kernels/membw.py``; it is bound by bytes, and
-reads with 16-byte loads from enough blocks to fill all SMs, then sums the
-per-block partials in a second pass.
+paper's ``dsink``).
+``strided_reduce``: the sum of one row in every ``stride`` rows of each block
+of ``block_rows`` rows — the load-granularity probe (paper Tab 3.1).
 
-``stream_copy`` and ``strided_reduce`` have plain versions only so far; their
-kernels are still to be ported, and a CUDA tensor raises.
+Their kernels (``csrc/membw.cu``) replace the Pallas ``_copy_kernel``,
+``_reduce_kernel`` and ``_strided_reduce_kernel`` of ``repro/kernels/membw.py``.
+They are bound by bytes: 16-byte accesses from enough blocks to fill all
+SMs, and the reductions sum per-block partials in a second pass.  On a CUDA
+tensor each wrapper launches its kernel; a CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
@@ -19,6 +22,11 @@ import torch
 from . import _util, ref
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+_COPY_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int)
+_STRIDED_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+)
 _THREADS = 256  # csrc/membw.cu::kThreads
 _BLOCKS_PER_SM = 8  # 2048 resident threads per SM / 256
 
@@ -31,17 +39,27 @@ def _check_tiles(x: torch.Tensor, block_rows: int, block_cols: int) -> None:
         raise ValueError(f"shape {(r, c)} does not divide into ({block_rows}, {block_cols}) tiles")
 
 
-def _no_kernel(op: str, x: torch.Tensor) -> None:
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            f"{op} has no CUDA kernel yet (queued in ROADMAP.md); use backend='torch'"
-        )
+def _grid(x: torch.Tensor, work: int) -> int:
+    """Blocks of 256 threads for ``work`` threads, at most 8 per SM."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return max(1, min(-(-work // _THREADS), sms * _BLOCKS_PER_SM))
 
 
 def stream_copy(x: torch.Tensor, *, block_rows: int = 8, block_cols: int = 512) -> torch.Tensor:
+    """Copy bandwidth probe: returns a new tensor equal to ``x`` bit for bit.
+
+    ``block_rows``/``block_cols`` are the tile the shape must divide into, as
+    in the reference; the kernel copies 16 bytes per thread access.
+    """
     _check_tiles(x, block_rows, block_cols)
-    _no_kernel("stream_copy", x)
-    return ref.copy_ref(x)
+    if x.device.type == "cpu":
+        return ref.copy_ref(x)
+    _util.check_cuda_operand("x", x)
+    out = torch.empty_like(x)
+    nbytes = x.numel() * x.element_size()
+    _util.launch("stream_copy", "repro_stream_copy", _COPY_ARGTYPES, x.device,
+                 x.data_ptr(), nbytes, out.data_ptr(), _grid(x, -(-nbytes // 16)))
+    return out
 
 
 def stream_reduce(x: torch.Tensor, *, block_rows: int = 8, block_cols: int = 512) -> torch.Tensor:
@@ -58,8 +76,7 @@ def stream_reduce(x: torch.Tensor, *, block_rows: int = 8, block_cols: int = 512
         return ref.reduce_ref(x)
     _util.check_cuda_operand("x", x)
     n = x.numel()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(-(-(n // 4) // _THREADS), sms * _BLOCKS_PER_SM))
+    blocks = _grid(x, n // 4)
     partials = torch.empty(blocks, dtype=torch.float32, device=x.device)
     out = torch.empty((1, 1), dtype=torch.float32, device=x.device)
     _util.launch("stream_reduce", "repro_stream_reduce", _ARGTYPES, x.device,
@@ -68,7 +85,29 @@ def stream_reduce(x: torch.Tensor, *, block_rows: int = 8, block_cols: int = 512
 
 
 def strided_reduce(x: torch.Tensor, *, stride: int, block_rows: int = 64) -> torch.Tensor:
+    """Load-granularity probe: the (1,1) fp32 sum of the rows whose offset
+    within their block of ``block_rows`` rows is a multiple of ``stride``.
+
+    That is what the reference's Pallas kernel sums (its stride restarts in
+    every block); its oracle, ``x[::stride].sum()``, agrees only when
+    ``stride`` divides ``block_rows`` (ROADMAP.md §3).
+    """
     if x.ndim != 2 or x.shape[0] % block_rows:
         raise ValueError(f"rows of {tuple(x.shape)} do not divide into blocks of {block_rows}")
-    _no_kernel("strided_reduce", x)
-    return ref.strided_reduce_ref(x, stride)
+    if stride < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    if x.device.type == "cpu":
+        return ref.strided_reduce_blocked_ref(x, stride, block_rows)
+    if x.dtype != torch.float32:
+        raise TypeError(f"strided_reduce kernel takes float32, got {x.dtype}")
+    _util.check_cuda_operand("x", x)
+    rows, cols = x.shape
+    per = -(-block_rows // stride)  # selected rows in each block
+    sel_rows = rows // block_rows * per
+    blocks = _grid(x, sel_rows * 32)  # one warp per selected row
+    partials = torch.empty(blocks, dtype=torch.float32, device=x.device)
+    out = torch.empty((1, 1), dtype=torch.float32, device=x.device)
+    _util.launch("strided_reduce", "repro_strided_reduce", _STRIDED_ARGTYPES, x.device,
+                 x.data_ptr(), sel_rows, cols, per, block_rows, stride, partials.data_ptr(),
+                 blocks, out.data_ptr())
+    return out

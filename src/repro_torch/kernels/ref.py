@@ -22,7 +22,17 @@ def reduce_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 def strided_reduce_ref(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """The reference's oracle: every ``stride``-th row of the whole array."""
     return torch.sum(x[::stride, :].float()).reshape(1, 1)
+
+
+def strided_reduce_blocked_ref(x: torch.Tensor, stride: int, block_rows: int) -> torch.Tensor:
+    """What the reference's Pallas kernel sums: the rows whose offset within
+    their ``block_rows`` block is a multiple of ``stride`` (the stride
+    restarts in every block).  Equal to :func:`strided_reduce_ref` whenever
+    ``stride`` divides ``block_rows``."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return torch.sum(x[(rows % block_rows) % stride == 0].float()).reshape(1, 1)
 
 
 def pchase_ref(perm, steps: int) -> int:
@@ -39,16 +49,20 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor
 
 
 def flash_attention_ref(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, q_offset: int = 0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, q_offset: int = 0,
+    kv_len: int | None = None,
 ) -> torch.Tensor:
-    """q (BH, Sq, hd); k/v (BH, Skv, hd)."""
+    """q (BH, Sq, hd); k/v (BH, Skv, hd).  ``kv_len`` masks keys from that
+    index on (the padding the kernel wrapper adds); None keeps every key."""
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqh,bkh->bqk", q.float(), k.float()) * scale
+    sq, skv = s.shape[-2], s.shape[-1]
+    ki = torch.arange(skv, device=q.device)[None, :]
     if causal:
-        sq, skv = s.shape[-2], s.shape[-1]
         qi = q_offset + torch.arange(sq, device=q.device)[:, None]
-        ki = torch.arange(skv, device=q.device)[None, :]
         s = torch.where(ki <= qi, s, torch.full_like(s, -1e30))
+    if kv_len is not None and kv_len < skv:
+        s = torch.where(ki < kv_len, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkh->bqh", p, v.float()).to(q.dtype)
 

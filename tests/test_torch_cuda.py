@@ -72,8 +72,10 @@ def test_matmul_kernel(dev, mkn, dtype, tol):
 def test_dispatch_on_the_card(dev):
     x = _rand((8, 512), dev)
     assert tapi.resolve_backend(device=x.device) == "cuda"
+    u = _rand((1, 8, 2, 4), dev)
+    a, bc = _rand((1, 8, 2), dev), _rand((1, 8, 3), dev)
     with pytest.raises(NotImplementedError, match="no CUDA kernel yet"):
-        tapi.stream_copy(x)
+        tapi.ssm_scan(u, a, bc, bc)
     torch.testing.assert_close(tapi.stream_copy(x, backend="torch"), x)
     with pytest.raises(ValueError, match="cpu clock"):
         time_fn(lambda t: t, x, device="cpu")
@@ -89,3 +91,65 @@ def test_probes_default_to_the_kernels(dev):
     assert res.meta["backend"] == "cuda" and res.y[0] > 0
     counts = _util.launch_counts()
     assert all(counts.get(k, 0) > 0 for k in ("pchase", "stream_reduce", "matmul"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("shape,block_cols", [((8, 512), 512), ((24, 1000), 200), ((1, 4), 4)])
+def test_stream_copy_kernel(dev, dtype, shape, block_cols):
+    x = _rand(shape, dev, scale=100.0).to(dtype)
+    before = _util.launch_counts().get("stream_copy", 0)
+    got = tapi.stream_copy(x, block_rows=shape[0], block_cols=block_cols)
+    torch.cuda.synchronize()
+    assert _util.launch_counts()["stream_copy"] == before + 1
+    assert got.data_ptr() != x.data_ptr() and torch.equal(got, x)
+
+
+@pytest.mark.parametrize("stride", [1, 2, 3, 8, 64, 128])
+@pytest.mark.parametrize("shape", [(256, 128), (4096, 512), (128, 6)])
+def test_strided_reduce_kernel(dev, stride, shape):
+    x = _rand(shape, dev)
+    got = tapi.strided_reduce(x, stride=stride, block_rows=64)
+    want = ref.strided_reduce_blocked_ref(x, stride, 64)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    if 64 % stride == 0:  # then the reference's oracle sums the same rows
+        torch.testing.assert_close(got, ref.strided_reduce_ref(x, stride), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("b,causal,sq,skv,q_offset,tiles", [
+    (2, True, 200, 200, 0, {"bk": 1024}),
+    (2, False, 64, 100, 0, {"bq": 32, "bk": 50}),
+    (2, True, 33, 97, 64, {"bq": 16, "bk": 32}),
+    (1, True, 256, 256, 0, {}),  # B == 1: the head flattening is a view, not a copy
+])
+def test_flash_attention_kernel(dev, dtype, tol, hd, b, causal, sq, skv, q_offset, tiles):
+    h = 3
+    q = _rand((b, sq, h, hd), dev, dtype, 5)
+    k = _rand((b, skv, h, hd), dev, dtype, 6)
+    v = _rand((b, skv, h, hd), dev, dtype, 7)
+    before = _util.launch_counts().get("flash_attention", 0)
+    got = tapi.flash_attention(q, k, v, causal=causal, q_offset=q_offset, **tiles)
+    torch.cuda.synchronize()
+    assert _util.launch_counts()["flash_attention"] == before + 1
+    want = tapi.flash_attention(q, k, v, causal=causal, q_offset=q_offset, backend="torch")
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_lm_prefill_runs_the_flash_kernel(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("gemma-2b").reduced().replace(head_dim=64, attn_impl="pallas")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    _util.reset_launch_counts()
+    last, cache = model.prefill(params, {"tokens": toks}, 48)
+    assert _util.launch_counts() == {"flash_attention": cfg.n_layers}
+    plain, _ = build_model(cfg.replace(attn_impl="blockwise"), device=dev).prefill(
+        params, {"tokens": toks}, 48)
+    torch.testing.assert_close(last, plain, rtol=1e-4, atol=1e-4)

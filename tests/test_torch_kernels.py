@@ -107,8 +107,37 @@ def test_matmul_out_dtype():
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, BF16, np.int32])
+def test_stream_copy_kernel_parity(dtype):
+    x = (np.arange(24 * 1024) % 251).reshape(24, 1024).astype(dtype)
+    want = japi.stream_copy(jnp.asarray(x), block_rows=8, block_cols=512)  # Pallas, interpret
+    got = stream_copy(_t(x), block_rows=8, block_cols=512)
+    assert got.dtype == _t(x).dtype
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+
+
+# x = arange(256*128) % 97, block_rows 64: the reference's Pallas kernel and
+# its oracle, both run on the CPU (interpret mode), give these sums
+_STRIDED_SUMS = {2: (785828.0, 785828.0), 3: (542504.0, 531453.0), 128: (23527.0, 10836.0)}
+
+
+@pytest.mark.parametrize("stride", [2, 3, 128])
+def test_strided_reduce_blocked_matches_the_pallas_kernel(stride):
+    x = (np.arange(256 * 128) % 97).reshape(256, 128).astype(np.float32)
+    kernel = float(japi.strided_reduce(jnp.asarray(x), stride=stride, block_rows=64)[0, 0])
+    oracle = float(jref.strided_reduce_ref(jnp.asarray(x), stride)[0, 0])
+    assert (kernel, oracle) == _STRIDED_SUMS[stride]
+    # the port's kernel wrapper and its plain version sum what the Pallas kernel sums ...
+    for got in (strided_reduce(_t(x), stride=stride, block_rows=64),
+                tref.strided_reduce_blocked_ref(_t(x), stride, 64)):
+        np.testing.assert_allclose(float(got[0, 0]), kernel, rtol=1e-6)
+    # ... and the torch backend stays the counterpart of the reference's oracle
+    got = tapi.strided_reduce(_t(x), stride=stride)
+    np.testing.assert_allclose(float(got[0, 0]), oracle, rtol=1e-6)
+
+
 # ---------------------------------------------------------------------------
-# plain-only ops (kernels queued), against repro.kernels.ref
+# plain versions against repro.kernels.ref
 # ---------------------------------------------------------------------------
 def test_stream_copy_parity():
     x = _np((16, 512), 8)
@@ -168,8 +197,19 @@ def test_backend_follows_tensor_and_cuda_on_cpu_raises():
 
 @pytest.mark.parametrize("op", ["stream_copy", "strided_reduce", "flash_attention", "ssm_scan"])
 def test_op_without_kernel_raises_on_cuda(op):
-    with pytest.raises(NotImplementedError, match="no CUDA kernel yet"):
-        tapi.get_op(op).impl("cuda")
+    """Asking for the cuda backend never falls back: an op with no kernel yet
+    raises, and an op with one raises on CPU tensors."""
+    if op == "ssm_scan":
+        with pytest.raises(NotImplementedError, match="no CUDA kernel yet"):
+            tapi.get_op(op).impl("cuda")
+        return
+    assert tapi.get_op(op).impl("cuda") is not None
+    x = torch.ones((64, 512))
+    args = {"stream_copy": (x,), "strided_reduce": (x,),
+            "flash_attention": (torch.ones((1, 8, 2, 64)),) * 3}[op]
+    kw = {"stride": 2} if op == "strided_reduce" else {}
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tapi.get_op(op)(*args, backend="cuda", **kw)
 
 
 def test_policy_rejects_unported_features_and_bad_tiles():

@@ -24,7 +24,14 @@ Phases, in order; any failure exits non-zero before the final line:
    tokens, 32 greedy steps, then one prompt of 2048; flash_attention must
    launch once per layer per prefill; the same requests through the plain
    ``attn_impl="blockwise"`` path are the reference;
-8. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
+8. the Zamba2 hybrid LM at zamba2-7b's full width and depth (81 Mamba2
+   layers, 14 shared-attention calls at hd 112), ``ssm_impl="pallas"`` and
+   ``attn_impl="pallas"``, through ``build_model(cfg).loss_fn`` (81 ssm_scan
+   and 14 flash_attention launches), ``prefill`` (14 flash_attention) and
+   16 ``decode_step``s on 4 sequences of 1000 tokens; the same requests
+   through the plain path (``ssm_impl="xla"``, ``attn_impl="blockwise"``)
+   are the reference;
+9. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Rates used for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s HBM,
@@ -47,7 +54,7 @@ HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 KERNELS = ("pchase", "stream_copy", "stream_reduce", "strided_reduce", "axpy", "matmul",
-           "flash_attention")
+           "flash_attention", "ssm_scan")
 SOURCES = {
     "pchase": ("src/repro_torch/kernels/csrc/pchase.cu", "src/repro/kernels/pchase.py:22"),
     "stream_copy": ("src/repro_torch/kernels/csrc/membw.cu", "src/repro/kernels/membw.py:19"),
@@ -57,8 +64,11 @@ SOURCES = {
     "matmul": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:58"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:49"),
+    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu", "src/repro/kernels/ssm_scan.py:17"),
 }
 LM_BATCH, LM_PROMPT, LM_STEPS, LM_LONG = 4, 1000, 32, 2048
+ZAMBA_STEPS = 16
+LOSS_RTOL = 1e-3  # zamba2 loss against the plain path, relative; measured ~2e-5
 MEMBW_SHAPE = (65536, 512)  # 128 MiB of fp32: the probes' largest footprint
 
 
@@ -183,6 +193,7 @@ def kernel_checks(torch, dev) -> dict:
     del a, b, ab, bb
     rows.update(membw_checks(torch, dev, gen))
     rows["flash_attention"] = flash_checks(torch, dev, gen)
+    rows["ssm_scan"] = ssm_checks(torch, dev, gen)
     for name, r in rows.items():
         print(f"check {name}: {r['shape']}; max_abs_err {r['max_abs_err']} ({r['tolerance']}); "
               f"kernel {r['ms']} ms, plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
@@ -236,51 +247,126 @@ def membw_checks(torch, dev, gen) -> dict:
     return rows
 
 
+def bound(flops: float, nbytes: float, peak: float) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over HBM and operations over ``peak``."""
+    by_ops, by_bytes = flops / peak * 1e3, nbytes / HBM_BPS * 1e3
+    return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+
+
 def flash_checks(torch, dev, gen) -> dict:
-    """flash_attention at the LM's shapes: gemma-2b's 8 query heads over the
-    expanded KV head, hd 256, bf16; prompts of 1000 (bk 1000, Sq padded to
-    1024) and 2048 (bq 128, bk 1024) at BH 32; fp32 at S 256."""
+    """flash_attention at the LMs' shapes, bf16 at S 1000 (bk 1000, Sq padded
+    to 1024): gemma-2b's 8 query heads over the expanded KV head, hd 256, BH
+    32; zamba2-7b's 32 heads of hd 112 (zero-padded to the kernel's 128), BH
+    128.  Also gemma's prompt of 2048 (bq 128, bk 1024) and fp32 at S 256."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
-    def qkv(bh, sq, skv, dtype):
-        return [torch.randn((bh, s, 256), generator=gen, device=dev).to(dtype)
-                for s in (sq, skv, skv)]
-
-    def check(dtype, s, bq, bk, tol):
+    def check(dtype, s, bq, bk, tol, bh=32, hd=256):
         sq_pad = -(-s // bq) * bq
-        q, k, v = qkv(32, sq_pad, s, dtype)
+        q, k, v = [torch.randn((bh, n, hd), generator=gen, device=dev).to(dtype)
+                   for n in (sq_pad, s, s)]
         got = flash_attention_cuda(q, k, v, causal=True, bq=bq, bk=bk, kv_len=s)
         want = ref.flash_attention_ref(q, k, v, causal=True, kv_len=s)
-        err = check_close(f"flash_attention {dtype} S {s}", got[:, :s].float(),
+        err = check_close(f"flash_attention {dtype} S {s} hd {hd}", got[:, :s].float(),
                           want[:, :s].float(), tol, tol)
         return err, (q, k, v)
 
+    def timings(q, k, v, heads):
+        """kernel, plain and SDPA ms at S 1000, and the bound of the work."""
+        bh, s, hd = k.shape
+        # SDPA's fused kernels take (B, H, S, hd): the flattened layout viewed so
+        q4, k4, v4 = (t.view(LM_BATCH, heads, -1, hd) for t in (q[:, :s].contiguous(), k, v))
+        flops = 2 * bh * s * s * hd  # causal: half of the two full products' 4*BH*Sq*Skv*hd
+        nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
+        bound_ms, bound_by = bound(flops, nbytes, BF16_FLOPS)
+        return {
+            "ms": time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True, bq=128,
+                                                              bk=1000, kv_len=s), 10),
+            "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                                       kv_len=s), 5),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+
     err32, _ = check(torch.float32, 256, 128, 256, 1e-4)
     err2k, _ = check(torch.bfloat16, 2048, 128, 1024, 2e-2)
-    err, (q, k, v) = check(torch.bfloat16, LM_PROMPT, 128, 1000, 2e-2)
-    bh, s, hd = 32, LM_PROMPT, 256
-    # SDPA's fused kernels take (B, H, S, hd): the flattened layout viewed so
-    q4, k4, v4 = (t.view(LM_BATCH, 8, -1, hd) for t in (q[:, :s].contiguous(), k, v))
+    err112, qkv112 = check(torch.bfloat16, LM_PROMPT, 128, 1000, 2e-2, bh=128, hd=112)
+    hd112 = timings(*qkv112, heads=32)
+    del qkv112
+    err, qkv = check(torch.bfloat16, LM_PROMPT, 128, 1000, 2e-2)
     row = {
         "shape": "q (32, 1024, 256) bf16 (Sq 1000 padded to bq 128), k/v (32, 1000, 256), causal",
-        "tolerance": "bf16 rtol 2e-2, atol 2e-2 at S 1000 and 2048; fp32 1e-4 at S 256",
+        "tolerance": "bf16 rtol 2e-2, atol 2e-2 at S 1000 (hd 256 and 112) and 2048; "
+                     "fp32 1e-4 at S 256",
         "max_abs_err": err, "max_abs_err_bf16_s2048": err2k, "max_abs_err_fp32_s256": err32,
-        "ms": time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True, bq=128, bk=1000,
-                                                          kv_len=s), 10),
-        "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True,
-                                                                   kv_len=s), 5),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True), 10),
+        "max_abs_err_bf16_hd112": err112, **timings(*qkv, heads=8),
+        **{f"{k}_hd112": v for k, v in hd112.items()},
     }
-    flops = 2 * bh * s * s * hd  # causal: half of the two full products' 4*BH*Sq*Skv*hd
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
-    by_ops, by_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
-    row["bound_ms"] = max(by_ops, by_bytes)
-    row["bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
+    print(f"check flash_attention at zamba2-7b's q (128, 1024, 112) bf16: {hd112}", flush=True)
     return row
+
+
+def ssm_checks(torch, dev, gen) -> dict:
+    """ssm_scan at zamba2-7b's main-path shape: u (4, 1024, 112, 64) (S 1000
+    padded to the chunk), a_log (4, 1024, 112) f32 at the init's decay
+    (-softplus of a unit normal, ~0.8 a step), head-shared B/C (4, 1024, 64),
+    chunk 256; bf16 (rtol/atol 2e-2: one rounding of y) and fp32 (1e-4: sum
+    order) against the chunked plain version, fp32 again at a slow decay
+    (-softplus(N(-5, 1)), ~0.007 a step, where the state carried across the
+    4 chunks and the key tiles far below the diagonal decide y; at the init's
+    decay they add ~0), and fp32 at S 256 against the sequential recurrence.
+    Tolerances are relative to max |y|."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _util, ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+    bsz, s, h, p, n, chunk = LM_BATCH, 1024, 112, 64, 64, 256
+
+    def inputs(dtype, steps=s, shift=0.0):
+        a = -F.softplus(torch.randn((bsz, steps, h), generator=gen, device=dev) + shift)
+        u = (torch.randn((bsz, steps, h, p), generator=gen, device=dev) * 0.5).to(dtype)
+        b, c = ((torch.randn((bsz, steps, n), generator=gen, device=dev) * 0.5).to(dtype)
+                for _ in range(2))
+        return u, a, b, c
+
+    def plain(scan, *args):
+        return _util.unflatten_heads(scan(*_util.flatten_ssm(*args[:4]), *args[4:]), bsz)
+
+    ins = inputs(torch.float32)
+    err32 = check_close("ssm_scan fp32", ssm_scan_cuda(*ins, chunk=chunk),
+                        plain(ref.ssm_scan_chunked_ref, *ins, chunk), 1e-4, 1e-4)
+    ins = inputs(torch.float32, shift=-5.0)
+    err32_slow = check_close("ssm_scan fp32 at a slow decay", ssm_scan_cuda(*ins, chunk=chunk),
+                             plain(ref.ssm_scan_chunked_ref, *ins, chunk), 1e-4, 1e-4)
+    ins = inputs(torch.float32, 256)
+    err_seq = check_close("ssm_scan fp32 S 256 vs the sequential recurrence",
+                          ssm_scan_cuda(*ins, chunk=chunk), plain(ref.ssm_scan_ref, *ins),
+                          1e-4, 1e-4)
+    u, a, b, c = inputs(torch.bfloat16)
+    err = check_close("ssm_scan bf16", ssm_scan_cuda(u, a, b, c, chunk=chunk).float(),
+                      plain(ref.ssm_scan_chunked_ref, u, a, b, c, chunk).float(), 2e-2, 2e-2)
+    flat = _util.flatten_ssm(u, a, b, c)  # the plain version's own layout, made untimed
+    nbytes = 2 * u.numel() * u.element_size() + a.numel() * 4 + 2 * b.numel() * b.element_size()
+    causal = chunk * (chunk + 1) // 2  # (t, s) pairs with s <= t in a chunk
+    flops = bsz * h * (s // chunk) * (2 * causal * (n + p) + 4 * chunk * p * n)
+    bound_ms, bound_by = bound(flops, nbytes, BF16_FLOPS)
+    return {
+        "shape": "u (4, 1024, 112, 64) bf16, a_log (4, 1024, 112) f32, b/c (4, 1024, 64) bf16, "
+                 "chunk 256",
+        "tolerance": "bf16 rtol 2e-2, atol 2e-2; fp32 1e-4 (also at a slow decay, and at S 256 "
+                     "against the sequential recurrence); relative to max |y|",
+        "max_abs_err": err, "max_abs_err_fp32": err32, "max_abs_err_fp32_slow_decay": err32_slow,
+        "max_abs_err_fp32_sequential": err_seq,
+        "ms": time_ms(torch, lambda: ssm_scan_cuda(u, a, b, c, chunk=chunk), 10),
+        "plain_ms": time_ms(torch, lambda: ref.ssm_scan_chunked_ref(*flat, chunk), 3),
+        "library_ms": None,  # no single PyTorch call computes this scan
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms_fp32_pipes": flops / FP32_FLOPS * 1e3,
+    }
 
 
 def main_path(torch, dev) -> tuple:
@@ -476,9 +562,138 @@ def lm_path(torch, dev) -> dict:
     return counts
 
 
+def zamba_path(torch, dev) -> dict:
+    """Phase 8: zamba2-7b, full width and depth, through build_model's entry
+    points with the ssm_scan and flash kernels; the plain path (ssm_impl
+    "xla", attn_impl "blockwise") is the reference.  Per path: loss_fn on 4
+    sequences of 1000 tokens, the forward's logits, prefill of all but the
+    last token (cache 1016), then 16 decode steps, the first fed the last
+    prompt token (so its logits continue the forward), the rest greedy.
+    Launches are zeroed before and read after each call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _util
+    from repro_torch.models import build_model, mamba
+    from repro_torch.models.common import count_params
+
+    phase_start = time.perf_counter()
+    cfg = get_config("zamba2-7b").replace(ssm_impl="pallas", attn_impl="pallas")
+    plain_cfg = cfg.replace(ssm_impl="xla", attn_impl="blockwise")
+    n_super, per, tail = mamba._zamba_counts(cfg)
+    n_attn = n_super + (1 if tail else 0)
+    model, plain_model = build_model(cfg, device=dev), build_model(plain_cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    print(f"zamba: {cfg.name}, {cfg.n_layers} Mamba2 layers, {n_attn} shared-attention calls, "
+          f"d_model {cfg.d_model}, {count_params(params)} params ({params['embed'].dtype}), "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    seq = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1), generator=gen, device=dev)
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    prompts = batch["tokens"]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def run(m, c):
+        out, counts = {}, {}
+
+        def call(key, fn):
+            _util.reset_launch_counts()
+            res, out[f"{key}_s"] = timed(fn)
+            counts[key] = _util.launch_counts()
+            return res
+
+        out["loss"] = float(call("loss_fn", lambda: m.loss_fn(params, batch)))
+        logits = call("forward", lambda: mamba.zamba_forward(params, prompts, c))
+        out["last"], out["second_last"] = logits[:, -1].float(), logits[:, -2].float()
+        del logits
+        last, cache = call("prefill", lambda: m.prefill(params, {"tokens": prompts[:, :-1]},
+                                                        LM_PROMPT + ZAMBA_STEPS))
+        out["prefill_last"] = last.float()
+
+        def decode():
+            nonlocal cache
+            tok, toks = prompts[:, -1], []
+            for i in range(ZAMBA_STEPS):
+                pos = torch.full((LM_BATCH,), LM_PROMPT - 1 + i, dtype=torch.int32, device=dev)
+                logits, cache = m.decode_step(params, cache, tok, pos)
+                if i == 0:
+                    out["first_step"] = logits.float()
+                tok = logits.argmax(-1)
+                toks.append(tok)
+            return torch.stack(toks, 1)
+
+        out["tokens"] = call("decode", decode)
+        return out, counts
+
+    with torch.inference_mode():
+        # warm-up: cuBLAS handles and the kernels' shared-memory attributes
+        model.loss_fn(params, {"tokens": seq[:1, :32], "targets": seq[:1, 1:33]})
+        run_out, counts = run(model, cfg)
+        plain, plain_counts = run(plain_model, plain_cfg)
+    want = {"loss_fn": {"ssm_scan": cfg.n_layers, "flash_attention": n_attn},
+            "forward": {"ssm_scan": cfg.n_layers, "flash_attention": n_attn},
+            "prefill": {"flash_attention": n_attn}, "decode": {}}
+    if counts != want:
+        raise AssertionError(f"zamba: launches {counts}, expected {want}")
+    if any(plain_counts.values()):
+        raise AssertionError(f"zamba: the plain path launched kernels: {plain_counts}")
+    for key in ("last", "second_last", "prefill_last", "first_step"):
+        got = run_out[key]
+        if got.shape != (LM_BATCH, cfg.padded_vocab) or not torch.isfinite(got).all():
+            raise AssertionError(f"zamba: {key} is not finite of shape (4, {cfg.padded_vocab})")
+    if run_out["tokens"].shape != (LM_BATCH, ZAMBA_STEPS) or not math.isfinite(run_out["loss"]):
+        raise AssertionError("zamba: tokens or loss malformed")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    agree = {
+        "loss_vs_plain": abs(run_out["loss"] - plain["loss"]) / abs(plain["loss"]),
+        "last_logits_vs_plain": rel(run_out["last"], plain["last"]),
+        "prefill_vs_forward_pos_-2": rel(run_out["prefill_last"], run_out["second_last"]),
+        "first_step_vs_forward_pos_-1": rel(run_out["first_step"], run_out["last"]),
+        "plain_prefill_vs_plain_forward_pos_-2": rel(plain["prefill_last"], plain["second_last"]),
+    }
+    res = {
+        **{k: run_out[k] for k in ("loss_fn_s", "forward_s", "prefill_s", "decode_s", "loss")},
+        **{f"plain_{k}": plain[k] for k in ("loss_fn_s", "forward_s", "prefill_s", "decode_s",
+                                             "loss")},
+        "forward_tok_s": LM_BATCH * LM_PROMPT / run_out["forward_s"],
+        "decode_ms_per_step": run_out["decode_s"] / ZAMBA_STEPS * 1e3,
+        "decode_tok_s": LM_BATCH * ZAMBA_STEPS / run_out["decode_s"],
+        "greedy_equal_share": float((run_out["tokens"] == plain["tokens"]).float().mean()),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        **agree, "launches": counts, "phase_s": time.perf_counter() - phase_start,
+    }
+    print("zamba: " + json.dumps(res), flush=True)
+    if max(agree.values()) > 0.1:
+        raise AssertionError(f"zamba: outputs disagree by more than 0.1 of their max: {agree}")
+    # with random weights the loss sits near ln(vocab) whatever the layers compute,
+    # so 0.1 cannot catch a wrong layer; the kernels' own rounding is ~2e-5
+    if agree["loss_vs_plain"] > LOSS_RTOL:
+        raise AssertionError(f"zamba: loss differs from the plain path's by "
+                             f"{agree['loss_vs_plain']} relative, over {LOSS_RTOL}")
+    total = {}
+    for c in counts.values():
+        add_counts(total, c)
+    return total
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -500,11 +715,14 @@ def main() -> int:
     rows = kernel_checks(torch, dev)
     torch.cuda.empty_cache()
     counts, _ = main_path(torch, dev)
-    counts.update(axpy_path(torch, dev))
-    counts.update(entry_point_path(torch, dev))
+    add_counts(counts, axpy_path(torch, dev))
+    add_counts(counts, entry_point_path(torch, dev))
     torch.cuda.empty_cache()
-    counts.update(lm_path(torch, dev))
+    add_counts(counts, lm_path(torch, dev))
+    torch.cuda.empty_cache()  # gemma's params are gone; zamba2's 27 GB come next
+    add_counts(counts, zamba_path(torch, dev))
 
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print("kernels: " + " ".join(KERNELS))
     line = []
     for name in KERNELS:
@@ -516,8 +734,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
-        if "latency_bound_ms" in r:
-            entry["latency_bound_ms"] = r["latency_bound_ms"]
+        entry.update({k: v for k, v in r.items()
+                      if k == "latency_bound_ms" or k.endswith("_hd112")})
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,11 @@ Probe kernels (the paper's microbenchmark methodology):
 Compute kernels:
   - ``matmul``   tiled fp32-accumulating GEMM (the §4.4 GEMM-throughput probe)
   - ``flash_attention``  online-softmax attention (the LM's ``attn_impl="pallas"``)
+  - ``ssm_scan`` the chunked Mamba2 SSD scan (the hybrid LM's ``ssm_impl="pallas"``)
 
 Each kernel is CUDA C++ for ``sm_90a`` under ``csrc/``, built on first use,
 and is validated against the plain PyTorch versions in ``ref.py``.
 
 ``api.py`` is the public entry point: every op has a ``cuda`` backend (the
-hand kernel; not yet for ssm_scan) and a ``torch`` backend (the ref.py
-oracle).
+hand kernel) and a ``torch`` backend (the ref.py oracle).
 """

@@ -56,6 +56,17 @@ def flatten_heads(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b * h, s, hd)
 
 
+def flatten_heads_padded(x: torch.Tensor, rows: int, width: int) -> torch.Tensor:
+    """(B, S, H, hd) model layout -> a contiguous (B*H, rows, width) kernel
+    operand, zero past S and hd, written in one pass over ``x``."""
+    b, s, h, hd = x.shape
+    out = x.new_empty((b, h, rows, width))
+    out[:, :, :s, :hd].copy_(x.permute(0, 2, 1, 3))
+    out[:, :, s:].zero_()
+    out[:, :, :s, hd:].zero_()
+    return out.view(b * h, rows, width)
+
+
 def unflatten_heads(x: torch.Tensor, batch: int) -> torch.Tensor:
     """(B*H, S, hd) kernel layout -> (B, S, H, hd) model layout."""
     bh, s, hd = x.shape
@@ -63,10 +74,11 @@ def unflatten_heads(x: torch.Tensor, batch: int) -> torch.Tensor:
 
 
 def flatten_ssm(u, a_log, b, c):
-    """SSD model layout -> per-(batch*head) kernel layout.
+    """SSD model layout -> per-(batch*head) layout, the plain versions'.
 
     u (B,S,H,P) -> (B*H,S,P); a_log (B,S,H) -> (B*H,S); head-shared b/c
-    (B,S,N) are broadcast per head -> (B*H,S,N).
+    (B,S,N) are broadcast per head -> (B*H,S,N).  The CUDA kernel reads the
+    model layout itself and never expands b/c.
     """
     bsz, s, h, p = u.shape
     n = b.shape[-1]

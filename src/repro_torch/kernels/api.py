@@ -12,8 +12,7 @@ every kernel is a registered :class:`KernelOp` with named **backends**:
 
 When neither the call nor the policy names a backend, the tensors decide: a
 CUDA tensor dispatches to ``"cuda"``, a CPU tensor to ``"torch"``.  Asking for
-``"cuda"`` with CPU tensors raises, and so does ``"cuda"`` for an op whose
-kernel is not ported yet.
+``"cuda"`` with CPU tensors raises.
 
 A context-local :func:`kernel_policy` scopes the backend and tile overrides::
 
@@ -41,7 +40,9 @@ from . import matmul as _mm
 from . import membw as _bw
 from . import pchase as _pc
 from . import ref
-from ._util import fit_block, flatten_heads, flatten_ssm, pad_to_multiple, unflatten_heads
+from . import ssm_scan as _ssd
+from ._util import (fit_block, flatten_heads, flatten_heads_padded, flatten_ssm, pad_to_multiple,
+                    unflatten_heads)
 
 BACKENDS = ("cuda", "torch")
 
@@ -165,11 +166,6 @@ class KernelOp:
         try:
             return self._impls[backend]
         except KeyError:
-            if backend == "cuda":
-                raise NotImplementedError(
-                    f"op {self.name!r} has no CUDA kernel yet (queued in ROADMAP.md); "
-                    "use backend='torch'"
-                ) from None
             bound = sorted(self._impls)
             raise KeyError(
                 f"op {self.name!r} has no backend {backend!r} (bound: {bound})"
@@ -241,12 +237,6 @@ def kernel_op(name: str, *, tile_args: tuple = ()):
         return _register(op)
 
     return deco
-
-
-def plain_op(name: str, *, tile_args: tuple = (), doc: str = "") -> KernelOp:
-    """Register op ``name`` whose hand kernel is not ported yet: only its
-    ``torch`` backend is bound, and ``cuda`` raises."""
-    return _register(KernelOp(name, tile_args, doc=doc))
 
 
 def get_op(name: str) -> KernelOp:
@@ -349,17 +339,17 @@ def flash_attention(q, k, v, *, causal=True, q_offset=0, bq=128, bk=128):
     """Blockwise-softmax attention; q/k/v in model layout (B, S, H, hd).
     As in the reference, Sq and Skv are zero-padded to the (clamped) block
     sizes, the kernel masks keys past the true Skv, and the padded query
-    rows are sliced off."""
-    b, sq = q.shape[0], q.shape[1]
+    rows are sliced off.  hd is zero-padded to the kernel's template width
+    in the same copy, with the true ``hd ** -0.5`` as the scale."""
+    b, sq, _, hd = q.shape
     skv = k.shape[1]
     bq_, bk_ = fit_block(bq, sq), fit_block(bk, skv)
-    # flatten_heads is a view when B == 1; the kernel takes contiguous rows
-    qf = pad_to_multiple(flatten_heads(q), bq_, 1).contiguous()
-    kf = pad_to_multiple(flatten_heads(k), bk_, 1).contiguous()
-    vf = pad_to_multiple(flatten_heads(v), bk_, 1).contiguous()
+    width = _fa.kernel_head_dim(hd)
+    qf = flatten_heads_padded(q, -(-sq // bq_) * bq_, width)
+    kf, vf = (flatten_heads_padded(t, -(-skv // bk_) * bk_, width) for t in (k, v))
     out = _fa.flash_attention_cuda(qf, kf, vf, causal=causal, q_offset=q_offset,
-                                   bq=bq_, bk=bk_, kv_len=skv)
-    return unflatten_heads(out[:, :sq], b)
+                                   bq=bq_, bk=bk_, kv_len=skv, scale=hd ** -0.5)
+    return unflatten_heads(out[:, :sq, :hd], b)
 
 
 @flash_attention.defbackend("torch")
@@ -371,10 +361,17 @@ def _flash_attention_torch(q, k, v, *, causal=True, q_offset=0):
     return unflatten_heads(out, q.shape[0])
 
 
-ssm_scan = plain_op(
-    "ssm_scan", tile_args=("chunk",),
-    doc="Chunked SSD scan; u (B,S,H,P), a_log (B,S,H), b/c (B,S,N) head-shared.",
-)
+@kernel_op("ssm_scan", tile_args=("chunk",))
+def ssm_scan(u, a_log, b, c, *, chunk=256):
+    """Chunked SSD scan; u (B,S,H,P), a_log (B,S,H), b/c (B,S,N) head-shared.
+    As in the reference, the chunk is clamped to S, S is zero-padded to a
+    multiple of it (a_log 0 is a decay of 1 and u, b, c 0 add nothing) and
+    the padded steps are sliced off."""
+    s = u.shape[1]
+    chunk = fit_block(chunk, s)
+    # split and padded views of the model's tensors; the kernel takes contiguous rows
+    u, a_log, b, c = (pad_to_multiple(x, chunk, 1).contiguous() for x in (u, a_log, b, c))
+    return _ssd.ssm_scan_cuda(u, a_log, b, c, chunk=chunk)[:, :s]
 
 
 @ssm_scan.defbackend("torch")
@@ -397,7 +394,6 @@ __all__ = [
     "matmul",
     "op_names",
     "pchase",
-    "plain_op",
     "resolve_backend",
     "ssm_scan",
     "stream_copy",

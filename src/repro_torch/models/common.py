@@ -62,6 +62,11 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # rotary position embedding
 # ---------------------------------------------------------------------------
+def token_positions(b: int, s: int, device) -> torch.Tensor:
+    """Positions 0..s-1 of a (b, s) batch, int32."""
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     """Inverse frequencies, shape (head_dim//2,), float32."""
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)

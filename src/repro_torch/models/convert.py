@@ -1,9 +1,11 @@
 """Carry the reference's parameters into the port.
 
-``params_from_jax`` takes the reference's ``lm_init`` pytree as numpy arrays
-(``jax.tree.map(np.asarray, params)``, layer-stacked with a leading
-``n_layers`` axis) and returns the port's params: the same nested dict, the
-same shapes and dtypes, as torch tensors on ``device``.  The tests use it to
+``params_from_jax`` takes the reference's init pytree as numpy arrays
+(``jax.tree.map(np.asarray, params)``) and returns the port's params: the
+same nested dict, the same shapes and dtypes, as torch tensors on
+``device``.  The dense LM's (``lm_init``) are layer-stacked with a leading
+``n_layers`` axis; the hybrid's (``zamba_init``) lead with ``(n_super,
+per)`` under ``supers`` and ``(tail,)`` under ``tail``.  The tests use it to
 give both packages the same weights.
 """
 from __future__ import annotations
@@ -11,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .common import tree_map
+from .common import tree_leaves, tree_map
+from .mamba import _zamba_counts
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16, "bfloat16": torch.bfloat16}
 
@@ -25,16 +28,29 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device=device, dtype=_DTYPES[a.dtype.name])
 
 
-def params_from_jax(tree, cfg, device="cpu") -> dict:
-    """The reference's dense-LM params (numpy leaves) as the port's."""
-    if cfg.family != "dense":
+def _stacks(cfg) -> dict:
+    """Each stacked subtree and the leading shape its leaves must have."""
+    if cfg.family == "dense":
+        return {"layers": (cfg.n_layers,)}
+    n_super, per, tail = _zamba_counts(cfg)
+    return {"supers": (n_super, per), **({"tail": (tail,)} if tail else {})}
+
+
+def params_from_jax(tree, cfg, device="cuda") -> dict:
+    """The reference's dense-LM or hybrid params (numpy leaves) as the port's,
+    on ``device`` (the card unless the caller passes ``"cpu"``)."""
+    if cfg.family == "dense":
+        want = {"embed", "layers", "final_norm"} | (set() if cfg.tie_embeddings else {"lm_head"})
+    elif cfg.family == "hybrid":
+        want = {"embed", "supers", "shared_attn", "final_norm", "lm_head"} | set(_stacks(cfg))
+    else:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md)")
-    want = {"embed", "layers", "final_norm"} | (set() if cfg.tie_embeddings else {"lm_head"})
     if set(tree) != want:
         raise ValueError(f"params have keys {sorted(tree)}, expected {sorted(want)}")
     params = tree_map(lambda a: _tensor(a, device), tree)
-    for name, leaf in params["layers"]["attn"].items():
-        if leaf.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers.attn.{name} has {leaf.shape[0]} layers, "
-                             f"expected {cfg.n_layers}")
+    for name, lead in _stacks(cfg).items():
+        for leaf in tree_leaves(params[name]):
+            if tuple(leaf.shape[:len(lead)]) != lead:
+                raise ValueError(f"{name} has a leaf of shape {tuple(leaf.shape)}, expected "
+                                 f"leading axes {lead}")
     return params

@@ -24,6 +24,7 @@ from .common import (
     rmsnorm_init,
     scalar,
     softmax_xent,
+    token_positions,
     tree_map,
 )
 
@@ -56,8 +57,9 @@ def lm_init(gen: torch.Generator, cfg) -> Params:
     return p
 
 
-def layer_params(layers: Params, i: int) -> Params:
-    """Layer ``i``'s params: a view into each layer-stacked tensor."""
+def layer_params(layers: Params, i) -> Params:
+    """Layer ``i``'s params (an index, or a tuple of them into several stacked
+    axes): a view into each stacked tensor."""
     return tree_map(lambda a: a[i], layers)
 
 
@@ -123,15 +125,11 @@ def lm_logits(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
-def _positions(b: int, s: int, device) -> torch.Tensor:
-    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
-
-
 def lm_forward(params: Params, tokens: torch.Tensor, cfg, frontend=None):
     """tokens (B,S_text) -> logits (B,S,V), aux.  S = S_text (+frontend)."""
     x = embed_tokens(params, tokens, cfg, frontend)
     b, s, _ = x.shape
-    positions = _positions(b, s, x.device)
+    positions = token_positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         x, a = _block_apply(cfg, layer_params(params["layers"], i), x, positions)
@@ -162,7 +160,7 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int, frontend
     b, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens does not fit a cache of {max_len}")
-    positions = _positions(b, s, x.device)
+    positions = token_positions(b, s, x.device)
     cdt = torch.bfloat16 if cfg.dtype == "bfloat16" else x.dtype
     cache = attn.init_cache(cfg, b, max_len, cfg.n_layers, dtype=cdt, device=x.device)
     for i in range(cfg.n_layers):

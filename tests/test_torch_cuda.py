@@ -73,9 +73,13 @@ def test_dispatch_on_the_card(dev):
     x = _rand((8, 512), dev)
     assert tapi.resolve_backend(device=x.device) == "cuda"
     u = _rand((1, 8, 2, 4), dev)
-    a, bc = _rand((1, 8, 2), dev), _rand((1, 8, 3), dev)
-    with pytest.raises(NotImplementedError, match="no CUDA kernel yet"):
-        tapi.ssm_scan(u, a, bc, bc)
+    a, bc = -_rand((1, 8, 2), dev).abs(), _rand((1, 8, 3), dev)
+    before = _util.launch_counts().get("ssm_scan", 0)
+    got = tapi.ssm_scan(u, a, bc, bc)
+    torch.cuda.synchronize()
+    assert _util.launch_counts()["ssm_scan"] == before + 1
+    torch.testing.assert_close(got, tapi.ssm_scan(u, a, bc, bc, backend="torch"), rtol=1e-4,
+                               atol=1e-4)
     torch.testing.assert_close(tapi.stream_copy(x, backend="torch"), x)
     with pytest.raises(ValueError, match="cpu clock"):
         time_fn(lambda t: t, x, device="cpu")
@@ -117,7 +121,7 @@ def test_strided_reduce_kernel(dev, stride, shape):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2),
                                        (torch.float16, 2e-2)])
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 64, 112, 128, 256])  # 16 and 112 are zero-padded
 @pytest.mark.parametrize("b,causal,sq,skv,q_offset,tiles", [
     (2, True, 200, 200, 0, {"bk": 1024}),
     (2, False, 64, 100, 0, {"bq": 32, "bk": 50}),
@@ -153,3 +157,68 @@ def test_lm_prefill_runs_the_flash_kernel(dev):
     plain, _ = build_model(cfg.replace(attn_impl="blockwise"), device=dev).prefill(
         params, {"tokens": toks}, 48)
     torch.testing.assert_close(last, plain, rtol=1e-4, atol=1e-4)
+
+
+# -softplus(N(shift, 1)) per step: shift 0 is the init's ~0.8, under which
+# exp(acum) is below 1e-20 within ~60 steps; shift -5 is ~0.007, a trained
+# model's slow decay, under which the carried state and the key tiles far below
+# the diagonal decide y
+DECAY_SHIFT = {"fast": 0.0, "slow": -5.0}
+
+
+def _ssm_inputs(dev, dtype, bsz, s, h, p, n, seed, decay="fast"):
+    u = _rand((bsz, s, h, p), dev, seed=seed, scale=0.5)
+    a = -torch.nn.functional.softplus(_rand((bsz, s, h), dev, seed=seed + 1)
+                                      + DECAY_SHIFT[decay])
+    b = _rand((bsz, s, n), dev, seed=seed + 2, scale=0.5)
+    c = _rand((bsz, s, n), dev, seed=seed + 3, scale=0.5)
+    return u.to(dtype), a, b.to(dtype), c.to(dtype)
+
+
+@pytest.mark.parametrize("decay", ["fast", "slow"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("chunk", [16, 40, 64, 256])
+@pytest.mark.parametrize("bsz,s,h,p,n", [(1, 300, 3, 16, 16), (2, 520, 2, 64, 64),
+                                         (1, 100, 2, 8, 4), (1, 130, 1, 128, 128)])
+def test_ssm_scan_kernel(dev, dtype, tol, chunk, bsz, s, h, p, n, decay):
+    """Against the chunked plain version on the same (padded) inputs; S is a
+    multiple of no chunk, so the op's wrapper pads.  The tolerance is fp32
+    sum order (1e-4) or one bf16 rounding of y (2e-2), relative to max |y|.
+    The slow decay is what makes the state carry and the far key tiles count."""
+    u, a, b, c = _ssm_inputs(dev, dtype, bsz, s, h, p, n, seed=chunk + s, decay=decay)
+    before = _util.launch_counts().get("ssm_scan", 0)
+    got = tapi.ssm_scan(u, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _util.launch_counts()["ssm_scan"] == before + 1
+    assert got.shape == u.shape and got.dtype == dtype
+    fit = min(chunk, s)
+    padded = [_util.pad_to_multiple(t, fit, 1) for t in (u, a, b, c)]
+    want = ref.ssm_scan_chunked_ref(*_util.flatten_ssm(*padded), fit)
+    want = _util.unflatten_heads(want, bsz)[:, :s].float()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol * scale)
+    if dtype == torch.float32:  # and the sequential recurrence, the torch backend
+        torch.testing.assert_close(got, tapi.ssm_scan(u, a, b, c, backend="torch"), rtol=tol,
+                                   atol=tol * scale)
+
+
+def test_hybrid_forward_runs_both_kernels(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("zamba2-7b").reduced().replace(ssm_impl="pallas", attn_impl="pallas")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), device=dev, generator=g)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    _util.reset_launch_counts()
+    loss = model.loss_fn(params, batch)
+    assert _util.launch_counts() == {"ssm_scan": cfg.n_layers, "flash_attention": 2}
+    plain = build_model(cfg.replace(ssm_impl="xla", attn_impl="blockwise"), device=dev)
+    torch.testing.assert_close(loss, plain.loss_fn(params, batch), rtol=1e-4, atol=1e-4)
+    _util.reset_launch_counts()
+    last, _ = model.prefill(params, {"tokens": toks[:, :-1]}, 48)
+    assert _util.launch_counts() == {"flash_attention": 2}
+    want, _ = plain.prefill(params, {"tokens": toks[:, :-1]}, 48)
+    torch.testing.assert_close(last, want, rtol=1e-4, atol=1e-4)

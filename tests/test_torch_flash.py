@@ -19,7 +19,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models import attention as jattn
 from repro_torch.kernels import api as tapi
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda, kernel_head_dim
 from repro_torch.models import attention as tattn
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -109,3 +109,35 @@ def test_kernel_wrapper_checks_its_inputs():
         flash_attention_cuda(q, torch.zeros((3, 32, 16)), torch.zeros((3, 32, 16)), bq=16, bk=16)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tapi.flash_attention(q[None], q[None], q[None], backend="cuda")
+
+
+@pytest.mark.parametrize("hd,width", [(16, 64), (112, 128), (200, 256)])
+def test_head_width_padding_is_exact(hd, width):
+    """The kernel wrapper zero-pads hd up to its template width and scales by
+    the true hd ** -0.5: the plain version on the padded operands equals the
+    plain version on the unpadded ones, and zamba2-7b's hd 112 runs at 128."""
+    assert kernel_head_dim(hd) == width
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 24, 24, 3, 3, hd, seed=hd)[:3])
+    q, k, v = (t.permute(0, 2, 1, 3).reshape(3, 24, hd) for t in (q, k, v))
+    want = tref.flash_attention_ref(q, k, v, causal=True)
+    padded = [torch.nn.functional.pad(t, (0, width - hd)) for t in (q, k, v)]
+    got = tref.flash_attention_ref(*padded, causal=True, scale=hd ** -0.5)
+    np.testing.assert_allclose(got[..., :hd].numpy(), want.numpy(), **TOL)
+    assert float(got[..., hd:].abs().max()) == 0.0
+    np.testing.assert_allclose(flash_attention_cuda(q, k, v, bq=8, bk=8).numpy(), want.numpy(),
+                               **TOL)
+    with pytest.raises(ValueError, match="up to 256"):
+        kernel_head_dim(264)
+
+
+@pytest.mark.parametrize("b,s,rows,hd,width", [(2, 40, 48, 16, 64), (1, 24, 24, 112, 128)])
+def test_operands_are_padded_in_one_copy(b, s, rows, hd, width):
+    """The cuda wrapper's operand: the head-flattened rows, zero past S and hd,
+    contiguous, and a copy rather than a view of the model's tensor."""
+    from repro_torch.kernels import _util
+
+    x = torch.from_numpy(np.random.default_rng(hd).normal(size=(b, s, 3, hd)).astype(np.float32))
+    got = _util.flatten_heads_padded(x, rows, width)
+    want = torch.nn.functional.pad(_util.flatten_heads(x), (0, width - hd, 0, rows - s))
+    assert got.is_contiguous() and got.data_ptr() != x.data_ptr()
+    assert torch.equal(got, want)

@@ -197,16 +197,14 @@ def test_backend_follows_tensor_and_cuda_on_cpu_raises():
 
 @pytest.mark.parametrize("op", ["stream_copy", "strided_reduce", "flash_attention", "ssm_scan"])
 def test_op_without_kernel_raises_on_cuda(op):
-    """Asking for the cuda backend never falls back: an op with no kernel yet
-    raises, and an op with one raises on CPU tensors."""
-    if op == "ssm_scan":
-        with pytest.raises(NotImplementedError, match="no CUDA kernel yet"):
-            tapi.get_op(op).impl("cuda")
-        return
+    """Asking for the cuda backend never falls back: every op has a kernel,
+    and asking for it on CPU tensors raises."""
     assert tapi.get_op(op).impl("cuda") is not None
     x = torch.ones((64, 512))
     args = {"stream_copy": (x,), "strided_reduce": (x,),
-            "flash_attention": (torch.ones((1, 8, 2, 64)),) * 3}[op]
+            "flash_attention": (torch.ones((1, 8, 2, 64)),) * 3,
+            "ssm_scan": (torch.ones((1, 8, 2, 4)), -torch.ones((1, 8, 2)), torch.ones((1, 8, 3)),
+                         torch.ones((1, 8, 3)))}[op]
     kw = {"stride": 2} if op == "strided_reduce" else {}
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tapi.get_op(op)(*args, backend="cuda", **kw)

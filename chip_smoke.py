@@ -69,6 +69,11 @@ SOURCES = {
 LM_BATCH, LM_PROMPT, LM_STEPS, LM_LONG = 4, 1000, 32, 2048
 ZAMBA_STEPS = 16
 LOSS_RTOL = 1e-3  # zamba2 loss against the plain path, relative; measured ~2e-5
+# flash_attention's bf16 rows against the plain version's fp32 output:
+# max over rows of ||got - want|| / ||want||; p's and the output's bf16
+# roundings come to a few 1e-3
+FLASH_ROW_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
+FLASH_MODEL_SHAPES = {"gemma-2b": (8, 1, 256), "zamba2-7b": (32, 32, 112)}  # H, Hkv, hd
 MEMBW_SHAPE = (65536, 512)  # 128 MiB of fp32: the probes' largest footprint
 
 
@@ -100,6 +105,22 @@ def check_close(name, got, want, rtol, atol) -> float:
     limit = atol + rtol * float(want.double().abs().max())
     if not (err <= limit and got.shape == want.shape):
         raise AssertionError(f"{name}: max |err| {err} > {limit} (rtol {rtol}, atol {atol})")
+    return err
+
+
+def row_rel_err(got, want) -> float:
+    """The largest ||got - want|| / ||want|| over the rows of the last axis."""
+    g, w = got.double(), want.double()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+
+
+def check_rows(name, got, want, limit) -> float:
+    """A limit on each row's relative error, where check_close's scales with
+    the largest value of the whole output: a fault confined to rows whose
+    values are small cannot hide under it."""
+    err = row_rel_err(got, want)
+    if not (err <= limit and got.shape == want.shape):
+        raise AssertionError(f"{name}: max row ||err|| / ||want|| {err} > {limit}")
     return err
 
 
@@ -173,14 +194,15 @@ def kernel_checks(torch, dev) -> dict:
         "bound_ms": 3 * x.numel() * 4 / HBM_BPS * 1e3, "bound_by": "bytes",
     }
 
-    # matmul: the largest full-mode size, fp32 with no TF32 anywhere
+    # matmul: the largest full-mode size, fp32 with no TF32 anywhere; bf16 beside
+    # torch.matmul bf16 records the gap the gemm_lp slice's tensor-core path closes
     torch.backends.cuda.matmul.allow_tf32 = False
     nn = 2048
     a = torch.randn((nn, nn), generator=gen, device=dev) * 0.3
     b = torch.randn((nn, nn), generator=gen, device=dev) * 0.3
     err = check_close("matmul", matmul_cuda(a, b), ref.matmul_ref(a, b), 1e-4, 1e-4)
     ab, bb = a.bfloat16(), b.bfloat16()
-    check_close("matmul bf16", matmul_cuda(ab, bb), ref.matmul_ref(ab, bb), 3e-2, 3e-2)
+    err_bf16 = check_close("matmul bf16", matmul_cuda(ab, bb), ref.matmul_ref(ab, bb), 3e-2, 3e-2)
     rows["matmul"] = {
         "shape": "(2048, 2048) @ (2048, 2048) float32", "tolerance": "rtol 1e-4, atol 1e-4",
         "max_abs_err": err,
@@ -189,7 +211,14 @@ def kernel_checks(torch, dev) -> dict:
         "library_ms": time_ms(torch, lambda: torch.matmul(a, b), 10),
         "bound_ms": max(2 * nn**3 / FP32_FLOPS, 3 * nn * nn * 4 / HBM_BPS) * 1e3,
         "bound_by": "operations",
+        "max_abs_err_bf16": err_bf16,
+        "ms_bf16": time_ms(torch, lambda: matmul_cuda(ab, bb), 10),
+        "plain_ms_bf16": time_ms(torch, lambda: ref.matmul_ref(ab, bb), 10),
+        "library_ms_bf16": time_ms(torch, lambda: torch.matmul(ab, bb), 10),
+        "bound_ms_bf16": max(2 * nn**3 / BF16_FLOPS, 3 * nn * nn * 2 / HBM_BPS) * 1e3,
     }
+    print(f"check matmul bf16 2048^3 (FP32 pipes; torch.matmul bf16 on the tensor cores): "
+          f"{ {k: v for k, v in rows['matmul'].items() if k.endswith('_bf16')} }", flush=True)
     del a, b, ab, bb
     rows.update(membw_checks(torch, dev, gen))
     rows["flash_attention"] = flash_checks(torch, dev, gen)
@@ -253,59 +282,100 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple:
     return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
 
 
+def flash_model_case(torch, dev, gen, heads, kv_heads, hd) -> tuple:
+    """One bf16 causal case in the model layout at the LMs' batch and prompt,
+    q (B, S, heads, hd) and k/v (B, S, kv_heads, hd): the operands, their
+    head-expanded (BH, S, hd) copies that the plain version takes, the
+    kernel's output in that layout, and the plain version's fp32 output."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_model
+
+    s = LM_PROMPT
+    q = torch.randn((LM_BATCH, s, heads, hd), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((LM_BATCH, s, kv_heads, hd), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    flat = [t.repeat_interleave(heads // t.shape[2], 2).permute(0, 2, 1, 3)
+            .reshape(-1, s, hd).contiguous() for t in (q, k, v)]
+    got = flash_attention_model(q, k, v, causal=True).permute(0, 2, 1, 3).reshape(-1, s, hd)
+    want32 = ref.flash_attention_ref(*(t.float() for t in flat), causal=True)
+    return (q, k, v), flat, got, want32
+
+
+def flash_agreement(name, got, want32, tol) -> dict:
+    """``got`` against the plain version: within ``tol`` of its output in
+    ``got``'s dtype (check_close), and row by row within FLASH_ROW_RTOL of
+    its fp32 output; ``row_rel_err_rounding`` is what rounding that fp32
+    output to ``got``'s dtype alone gives."""
+    want = want32.to(got.dtype)
+    rtol = FLASH_ROW_RTOL[str(got.dtype).removeprefix("torch.")]
+    return {"max_abs_err": check_close(name, got.float(), want.float(), tol, tol),
+            "row_rel_err": check_rows(name, got, want32, rtol),
+            "row_rel_err_rounding": row_rel_err(want, want32)}
+
+
 def flash_checks(torch, dev, gen) -> dict:
-    """flash_attention at the LMs' shapes, bf16 at S 1000 (bk 1000, Sq padded
-    to 1024): gemma-2b's 8 query heads over the expanded KV head, hd 256, BH
-    32; zamba2-7b's 32 heads of hd 112 (zero-padded to the kernel's 128), BH
-    128.  Also gemma's prompt of 2048 (bq 128, bk 1024) and fp32 at S 256."""
+    """flash_attention at the LMs' shapes, bf16, causal, S 1000, in the model
+    layout the LMs hand it: gemma-2b's q (4, 1000, 8, 256) over one KV head
+    (native GQA), and zamba2-7b's q (4, 1000, 32, 112) at its native head
+    width; each against its plain version and timed beside it and SDPA.
+    Also the head-flattened entry point: bf16 at gemma's prompt of 2048
+    (bq 128, bk 1024) and fp32 at S 256 on the FP32-pipe kernel."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_model
 
-    def check(dtype, s, bq, bk, tol, bh=32, hd=256):
+    def check_flat(dtype, s, bq, bk, tol, bh=32, hd=256):
         sq_pad = -(-s // bq) * bq
         q, k, v = [torch.randn((bh, n, hd), generator=gen, device=dev).to(dtype)
                    for n in (sq_pad, s, s)]
         got = flash_attention_cuda(q, k, v, causal=True, bq=bq, bk=bk, kv_len=s)
-        want = ref.flash_attention_ref(q, k, v, causal=True, kv_len=s)
-        err = check_close(f"flash_attention {dtype} S {s} hd {hd}", got[:, :s].float(),
-                          want[:, :s].float(), tol, tol)
-        return err, (q, k, v)
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True, kv_len=s)
+        return flash_agreement(f"flash_attention {dtype} S {s} hd {hd}", got[:, :s],
+                               want32[:, :s], tol)
 
-    def timings(q, k, v, heads):
-        """kernel, plain and SDPA ms at S 1000, and the bound of the work."""
-        bh, s, hd = k.shape
-        # SDPA's fused kernels take (B, H, S, hd): the flattened layout viewed so
-        q4, k4, v4 = (t.view(LM_BATCH, heads, -1, hd) for t in (q[:, :s].contiguous(), k, v))
-        flops = 2 * bh * s * s * hd  # causal: half of the two full products' 4*BH*Sq*Skv*hd
-        nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
+    def model_layout(arch):
+        """The kernel on (B, S, H, hd) q and (B, S, Hkv, hd) k/v; the plain
+        version and SDPA get the expanded heads, made untimed."""
+        heads, kv_heads, hd = FLASH_MODEL_SHAPES[arch]
+        (q, k, v), flat, got, want32 = flash_model_case(torch, dev, gen, heads, kv_heads, hd)
+        errs = flash_agreement(f"flash_attention bf16 at {arch}'s q {tuple(q.shape)} "
+                               f"k/v {tuple(k.shape)}", got, want32, 2e-2)
+        del got, want32
+        s = LM_PROMPT
+        q4, k4, v4 = (t.view(LM_BATCH, heads, s, hd) for t in flat)  # SDPA's (B, H, S, hd)
+        flops = 2 * LM_BATCH * heads * s * s * hd  # causal: half of the two full products
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # KV heads read once
         bound_ms, bound_by = bound(flops, nbytes, BF16_FLOPS)
+        ms = time_ms(torch, lambda: flash_attention_model(q, k, v, causal=True), 20)
         return {
-            "ms": time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True, bq=128,
-                                                              bk=1000, kv_len=s), 10),
-            "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True,
-                                                                       kv_len=s), 5),
+            **errs, "ms": ms, "tflops": flops / ms * 1e-9,
+            "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(*flat, causal=True), 5),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True), 10),
+                q4, k4, v4, is_causal=True), 20),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
 
-    err32, _ = check(torch.float32, 256, 128, 256, 1e-4)
-    err2k, _ = check(torch.bfloat16, 2048, 128, 1024, 2e-2)
-    err112, qkv112 = check(torch.bfloat16, LM_PROMPT, 128, 1000, 2e-2, bh=128, hd=112)
-    hd112 = timings(*qkv112, heads=32)
-    del qkv112
-    err, qkv = check(torch.bfloat16, LM_PROMPT, 128, 1000, 2e-2)
+    flat32 = check_flat(torch.float32, 256, 128, 256, 1e-4)
+    flat2k = check_flat(torch.bfloat16, 2048, 128, 1024, 2e-2)
+    print(f"check flash_attention head-flattened: fp32 S 256 {flat32}, bf16 S 2048 {flat2k}",
+          flush=True)
+    hd112 = model_layout("zamba2-7b")
+    print(f"check flash_attention at zamba2-7b's q (4, 1000, 32, 112) bf16: {hd112}", flush=True)
     row = {
-        "shape": "q (32, 1024, 256) bf16 (Sq 1000 padded to bq 128), k/v (32, 1000, 256), causal",
-        "tolerance": "bf16 rtol 2e-2, atol 2e-2 at S 1000 (hd 256 and 112) and 2048; "
-                     "fp32 1e-4 at S 256",
-        "max_abs_err": err, "max_abs_err_bf16_s2048": err2k, "max_abs_err_fp32_s256": err32,
-        "max_abs_err_bf16_hd112": err112, **timings(*qkv, heads=8),
+        "shape": "q (4, 1000, 8, 256) bf16 causal, k/v (4, 1000, 1, 256): model layout, "
+                 "native GQA",
+        "tolerance": "bf16 rtol 2e-2, atol 2e-2 and each row's ||err|| / ||want|| within 1e-2 "
+                     "of the fp32 plain output, at S 1000 (hd 256 over one KV head, hd 112) and "
+                     "2048; fp32 1e-4 (rows 1e-4) at S 256",
+        "max_abs_err_bf16_s2048": flat2k["max_abs_err"],
+        "row_rel_err_bf16_s2048": flat2k["row_rel_err"],
+        "max_abs_err_fp32_s256": flat32["max_abs_err"],
+        **model_layout("gemma-2b"),
         **{f"{k}_hd112": v for k, v in hd112.items()},
     }
-    print(f"check flash_attention at zamba2-7b's q (128, 1024, 112) bf16: {hd112}", flush=True)
+    print(f"check flash_attention at gemma-2b's q (4, 1000, 8, 256) bf16: "
+          f"{ {k: v for k, v in row.items() if not k.endswith('_hd112')} }", flush=True)
     return row
 
 
@@ -735,7 +805,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
         entry.update({k: v for k, v in r.items()
-                      if k == "latency_bound_ms" or k.endswith("_hd112")})
+                      if k in ("latency_bound_ms", "tflops", "row_rel_err")
+                      or k.endswith(("_hd112", "_bf16"))})
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -336,13 +336,22 @@ def _matmul_torch(a, b, *, out_dtype=None):
 
 @kernel_op("flash_attention", tile_args=("bq", "bk"))
 def flash_attention(q, k, v, *, causal=True, q_offset=0, bq=128, bk=128):
-    """Blockwise-softmax attention; q/k/v in model layout (B, S, H, hd).
-    As in the reference, Sq and Skv are zero-padded to the (clamped) block
-    sizes, the kernel masks keys past the true Skv, and the padded query
-    rows are sliced off.  hd is zero-padded to the kernel's template width
-    in the same copy, with the true ``hd ** -0.5`` as the scale."""
-    b, sq, _, hd = q.shape
+    """Blockwise-softmax attention; q (B, Sq, H, hd), k/v (B, Skv, Hkv, hd)
+    with H % Hkv == 0, query head ``h`` reading KV head ``h // (H // Hkv)``
+    (the reference's ``jnp.repeat`` order).  bf16/fp16 go to the tensor-core
+    kernel in the model layout: it reads the grouped KV heads in place and
+    masks rows past S itself, so nothing is expanded or padded (but hd, where
+    a row is not a multiple of 16 bytes) and ``bq`` and ``bk`` change nothing
+    there.  fp32, as in the reference: the KV heads are expanded, Sq and Skv
+    are zero-padded to the (clamped) block sizes, the kernel masks keys past
+    the true Skv, and the padded query rows are sliced off; hd is zero-padded
+    to the fp32 kernel's template width in the same copy, with the true
+    ``hd ** -0.5`` as the scale."""
+    b, sq, h, hd = q.shape
     skv = k.shape[1]
+    if q.dtype in _fa.TMA_DTYPES:
+        return _fa.flash_attention_model(q, k, v, causal=causal, q_offset=q_offset)
+    k, v = _fa.expand_kv_heads(k, v, h)
     bq_, bk_ = fit_block(bq, sq), fit_block(bk, skv)
     width = _fa.kernel_head_dim(hd)
     qf = flatten_heads_padded(q, -(-sq // bq_) * bq_, width)
@@ -354,6 +363,7 @@ def flash_attention(q, k, v, *, causal=True, q_offset=0, bq=128, bk=128):
 
 @flash_attention.defbackend("torch")
 def _flash_attention_torch(q, k, v, *, causal=True, q_offset=0):
+    k, v = _fa.expand_kv_heads(k, v, q.shape[2])
     out = ref.flash_attention_ref(
         flatten_heads(q), flatten_heads(k), flatten_heads(v),
         causal=causal, q_offset=q_offset,

@@ -1,11 +1,17 @@
 """Tiled matmul kernel — the §4.4 arithmetic-throughput probe.
 
 The kernel (``csrc/matmul.cu``) replaces the Pallas ``_matmul_kernel`` of
-``repro/kernels/matmul.py``.  It is bound by operations: each block owns a
-128x128 output tile and loops over K itself (the TPU's sequential K grid
-axis), keeping an 8x8 fp32 accumulator per thread in registers and running
-on the FP32 pipes with no TF32.  bf16/fp16 inputs are widened to fp32 as they
-are staged and accumulate in fp32.  int8 and fp8 have no kernel yet.
+``repro/kernels/matmul.py``.  It is bound by operations on the FP32 pipes
+(67 TFLOP/s), and stays there: the ``dissect`` fit reads its rate as the
+card's fp32 peak, so no TF32 and no tensor-core emulation.  What holds such a
+kernel back is feeding the FMAs, so each block of 256 threads owns a 128x256
+output tile with an 8x16 fp32 accumulator per thread and streams K through a
+4-stage ring in shared memory: B by ``cp.async`` copies, A by 16-byte loads
+written transposed, stage k+3 in flight while stage k's FMAs run.  Any M, N,
+K runs (zero-filled edges; rows that are not 16-byte aligned take a
+one-element-load instance of the same kernel).  bf16/fp16 inputs are widened
+to fp32 as they are read from shared memory; their tensor-core path, and
+int8/fp8, wait for the gemm_lp slice.
 
 The reference's ``saturation_check`` guard sentinel waits for the port of
 ``kernels/guard.py``.

@@ -134,16 +134,13 @@ def blockwise_attention(q, k, v, *, causal: bool, chunk: int, q_offset: int = 0)
 def pallas_attention(q, k, v, *, causal: bool, chunk: int, q_offset: int = 0) -> torch.Tensor:
     """The flash-attention kernel path through the dispatch API.
 
-    ``cfg.attn_chunk`` becomes the KV block size.  The kernel takes matched
-    head counts, so the KV heads are expanded first, as ``jnp.repeat`` does:
-    each KV head repeated ``g`` times in place (``_group``'s (K, G) order).
+    ``cfg.attn_chunk`` becomes the KV block size.  The KV heads go to the op
+    unexpanded: query head ``h`` reads KV head ``h // g``, the order of the
+    reference's ``jnp.repeat``, which the kernel reads in place and the plain
+    version expands.
     """
     from repro_torch.kernels import api
 
-    g = q.shape[2] // k.shape[2]
-    if g > 1:
-        k = k.repeat_interleave(g, dim=2)
-        v = v.repeat_interleave(g, dim=2)
     return api.flash_attention(q, k, v, causal=causal, q_offset=q_offset, bk=chunk)
 
 

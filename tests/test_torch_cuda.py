@@ -10,6 +10,7 @@ from repro_torch.core.pchase import single_cycle_permutation
 from repro_torch.core.timing import time_fn
 from repro_torch.kernels import _util, ref
 from repro_torch.kernels import api as tapi
+from repro_torch.kernels.matmul import matmul_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -57,14 +58,19 @@ def test_axpy_kernel(dev, dtype, tol, vec_bytes, shape, block_cols):
     torch.testing.assert_close(got, ref.axpy_ref(x, y, 2.5), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("mkn", [(128, 128, 128), (300, 200, 100), (129, 7, 65), (512, 256, 384)])
+@pytest.mark.parametrize("mkn", [(128, 128, 128), (300, 200, 100), (129, 7, 65), (512, 256, 384),
+                                 (256, 1000, 192), (2048, 2048, 2048)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2),
                                        (torch.float16, 3e-2)])
 def test_matmul_kernel(dev, mkn, dtype, tol):
+    """Through the op (which pads to its tiles) and the kernel's own wrapper on
+    the unpadded operands.  K 1000 leaves a partial last stage of the 16-deep
+    ring; 129 x 7 x 65 has rows that are not 16-byte aligned (the one-element
+    instance); N 100, 7 and 384 end inside the kernel's 256-wide tile."""
     m, k, n = mkn
     a, b = _rand((m, k), dev, dtype, 3, 0.3), _rand((k, n), dev, dtype, 4, 0.3)
     want = ref.matmul_ref(a, b)
-    for got in (tapi.matmul(a, b), tapi.matmul(a, b, bm=64, bk=32, bn=64)):
+    for got in (tapi.matmul(a, b), tapi.matmul(a, b, bm=64, bk=32, bn=64), matmul_cuda(a, b)):
         assert got.shape == (m, n) and got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -121,18 +127,22 @@ def test_strided_reduce_kernel(dev, stride, shape):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2),
                                        (torch.float16, 2e-2)])
-@pytest.mark.parametrize("hd", [16, 64, 112, 128, 256])  # 16 and 112 are zero-padded
+@pytest.mark.parametrize("hd", [16, 64, 112, 128, 256])  # fp32 zero-pads 16 and 112
+@pytest.mark.parametrize("h,hkv", [(3, 3), (4, 1), (4, 2), (8, 1)])
 @pytest.mark.parametrize("b,causal,sq,skv,q_offset,tiles", [
     (2, True, 200, 200, 0, {"bk": 1024}),
     (2, False, 64, 100, 0, {"bq": 32, "bk": 50}),
     (2, True, 33, 97, 64, {"bq": 16, "bk": 32}),
     (1, True, 256, 256, 0, {}),  # B == 1: the head flattening is a view, not a copy
+    (3, True, 300, 300, 0, {}),  # S a multiple of neither 64 nor 128
+    (1, False, 130, 70, 0, {}),
 ])
-def test_flash_attention_kernel(dev, dtype, tol, hd, b, causal, sq, skv, q_offset, tiles):
-    h = 3
+def test_flash_attention_kernel(dev, dtype, tol, hd, h, hkv, b, causal, sq, skv, q_offset, tiles):
+    """Against the plain version; grouped KV heads (H over Hkv) reach the
+    bf16/fp16 kernel unexpanded, in the model layout."""
     q = _rand((b, sq, h, hd), dev, dtype, 5)
-    k = _rand((b, skv, h, hd), dev, dtype, 6)
-    v = _rand((b, skv, h, hd), dev, dtype, 7)
+    k = _rand((b, skv, hkv, hd), dev, dtype, 6)
+    v = _rand((b, skv, hkv, hd), dev, dtype, 7)
     before = _util.launch_counts().get("flash_attention", 0)
     got = tapi.flash_attention(q, k, v, causal=causal, q_offset=q_offset, **tiles)
     torch.cuda.synchronize()
@@ -140,6 +150,55 @@ def test_flash_attention_kernel(dev, dtype, tol, hd, b, causal, sq, skv, q_offse
     want = tapi.flash_attention(q, k, v, causal=causal, q_offset=q_offset, backend="torch")
     assert got.shape == want.shape and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("hd", [64, 112, 256])
+def test_flash_attention_running_max_and_masked_tiles(dev, dtype, hd):
+    """Scores that grow along the keys raise every row's running max on every
+    key tile, so each tile rescales the accumulator (corr < 1).  Causal at S
+    384 from q_offset 0: the first 64 rows of each block see none of the
+    block's later key tiles (a warpgroup skips them) and the diagonal tiles are
+    partly masked.  And keys past kv_len: the head-flattened entry point with
+    a garbage tail.  Tolerance 2e-2, one rounding of p to the input type."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    b, s, h = 2, 384, 4
+    ramp = torch.linspace(0.0, 3.0, s, device=dev)[None, :, None, None]
+    q = (0.5 + 0.1 * _rand((b, s, h, hd), dev, seed=8)).to(dtype)
+    k = (ramp * (1.0 + 0.1 * _rand((b, s, 1, hd), dev, seed=9)) * hd ** -0.5 * 4).to(dtype)
+    v = _rand((b, s, 1, hd), dev, dtype, 10)
+    before = _util.launch_counts().get("flash_attention", 0)
+    got = tapi.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _util.launch_counts()["flash_attention"] == before + 1
+    want = tapi.flash_attention(q, k, v, causal=True, backend="torch")
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+    qf, kf, vf = (t.permute(0, 2, 1, 3).reshape(-1, s, hd).contiguous()
+                  for t in (q, k.expand(b, s, h, hd), v.expand(b, s, h, hd)))
+    kv_len = 300
+    kf[:, kv_len:], vf[:, kv_len:] = 1e4, 1e4  # must not leak in
+    got = flash_attention_cuda(qf, kf, vf, causal=False, bq=128, bk=128, kv_len=kv_len)
+    want = ref.flash_attention_ref(qf, kf[:, :kv_len], vf[:, :kv_len], causal=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("hd", [12, 100])
+def test_flash_attention_pads_a_head_width_off_the_tma_unit(dev, dtype, hd):
+    """A 16-bit row of hd that is not a multiple of 16 bytes: zero-padded in
+    the model layout (grouped KV heads unexpanded), one launch, sliced back."""
+    q = _rand((2, 150, 4, hd), dev, dtype, 11)
+    k = _rand((2, 150, 2, hd), dev, dtype, 12)
+    v = _rand((2, 150, 2, hd), dev, dtype, 13)
+    before = _util.launch_counts().get("flash_attention", 0)
+    got = tapi.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _util.launch_counts()["flash_attention"] == before + 1
+    want = tapi.flash_attention(q, k, v, causal=True, backend="torch")
+    assert got.shape == want.shape == (2, 150, 4, hd) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
 def test_lm_prefill_runs_the_flash_kernel(dev):

@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero before the final line:
    pointer-chase, stream and matmul probes must have gone through the
    kernels; the fitted model is checked and compared with the H100 datasheet;
 5. ``probe_block_shape_bandwidth`` (the Ch. 1 axpy experiment), counted the
-   same way, and the access-width sweep of Fig 1.1 at an HBM-sized array;
+   same way, and the access-width sweep of Fig 1.1 at an HBM-sized array,
+   each width counted on its own (phase 3 times the same sweep beside
+   ``torch.add``; the kernels line carries both as axpy's ``sweep_256mib``);
 6. the kernel layer's bandwidth entry points ``api.stream_copy`` and
    ``api.strided_reduce`` on 8 MiB of ones (exact sums), counted the same way;
 7. the dense LM at gemma-2b's full width and depth, ``attn_impl="pallas"``,
@@ -75,6 +77,7 @@ LOSS_RTOL = 1e-3  # zamba2 loss against the plain path, relative; measured ~2e-5
 FLASH_ROW_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
 FLASH_MODEL_SHAPES = {"gemma-2b": (8, 1, 256), "zamba2-7b": (32, 32, 112)}  # H, Hkv, hd
 MEMBW_SHAPE = (65536, 512)  # 128 MiB of fp32: the probes' largest footprint
+AXPY_SWEEP_SHAPE = (32768, 2048)  # Fig 1.1's sweep: 256 MiB of fp32 an array
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -129,7 +132,6 @@ def kernel_checks(torch, dev) -> dict:
     from repro_torch import hw
     from repro_torch.core.pchase import single_cycle_permutation
     from repro_torch.kernels import ref
-    from repro_torch.kernels.axpy import axpy_cuda
     from repro_torch.kernels.matmul import matmul_cuda
     from repro_torch.kernels.membw import stream_reduce
     from repro_torch.kernels.pchase import pchase_cuda, pchase_torch
@@ -179,20 +181,7 @@ def kernel_checks(torch, dev) -> dict:
     }
     del x, ones
 
-    # axpy: the probe's 1 MiB footprint at its middle tile width, 16-byte accesses
-    x = torch.randn((512, 512), generator=gen, device=dev)
-    y = torch.randn((512, 512), generator=gen, device=dev)
-    err = check_close("axpy", axpy_cuda(x, y, 2.0), ref.axpy_ref(x, y, 2.0), 1e-5, 1e-5)
-    xb, yb = x.bfloat16(), y.bfloat16()
-    check_close("axpy bf16", axpy_cuda(xb, yb, 2.0), ref.axpy_ref(xb, yb, 2.0), 2e-2, 2e-2)
-    rows["axpy"] = {
-        "shape": "(512, 512) float32, tile (8, 512), 16-byte accesses",
-        "tolerance": "rtol 1e-5, atol 1e-5 (bf16: 2e-2)", "max_abs_err": err,
-        "ms": time_ms(torch, lambda: axpy_cuda(x, y, 2.0), 200),
-        "plain_ms": time_ms(torch, lambda: ref.axpy_ref(x, y, 2.0), 200),
-        "library_ms": time_ms(torch, lambda: torch.add(y, x, alpha=2.0), 200),
-        "bound_ms": 3 * x.numel() * 4 / HBM_BPS * 1e3, "bound_by": "bytes",
-    }
+    rows["axpy"] = axpy_checks(torch, dev, gen)
 
     # matmul: the largest full-mode size, fp32 with no TF32 anywhere; bf16 beside
     # torch.matmul bf16 records the gap the gemm_lp slice's tensor-core path closes
@@ -220,7 +209,8 @@ def kernel_checks(torch, dev) -> dict:
     print(f"check matmul bf16 2048^3 (FP32 pipes; torch.matmul bf16 on the tensor cores): "
           f"{ {k: v for k, v in rows['matmul'].items() if k.endswith('_bf16')} }", flush=True)
     del a, b, ab, bb
-    rows.update(membw_checks(torch, dev, gen))
+    rows["stream_copy"] = copy_checks(torch, dev, gen)
+    rows["strided_reduce"] = strided_checks(torch, dev, gen)
     rows["flash_attention"] = flash_checks(torch, dev, gen)
     rows["ssm_scan"] = ssm_checks(torch, dev, gen)
     for name, r in rows.items():
@@ -232,28 +222,103 @@ def kernel_checks(torch, dev) -> dict:
     return rows
 
 
-def membw_checks(torch, dev, gen) -> dict:
-    """stream_copy and strided_reduce at the probes' largest footprint."""
+def axpy_checks(torch, dev, gen) -> dict:
+    """axpy: one unroll at every access width (axpy_geometry, at the probe's
+    and the sweep's shapes, and the built kernel's); the probe's 1 MiB footprint at its middle tile
+    width with 16-byte accesses, timed; tiles of an odd number of vectors
+    (never a multiple of the unroll; 4503 take a second, partial round) at
+    every width in f32 and bf16; and Fig 1.1's sweep shape, (32768, 2048)
+    f32 = 256 MiB an array in (8, 2048) tiles, at 4, 8 and 16 bytes, each
+    timed beside ``torch.add`` at the same shape."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.membw import stream_copy, strided_reduce
+    from repro_torch.kernels.axpy import VEC_BYTES, axpy_cuda, axpy_geometry, kernel_unroll
 
-    rows = {}
+    unrolls = {(shape, vb): axpy_geometry(shape, 8, cols, vb, 4).unroll
+               for shape, cols in (((512, 512), 512), (AXPY_SWEEP_SHAPE, AXPY_SWEEP_SHAPE[1]))
+               for vb in VEC_BYTES}
+    unrolls.update({("kernel", vb): kernel_unroll(vb) for vb in VEC_BYTES})
+    if len(set(unrolls.values())) != 1:
+        raise AssertionError(f"axpy: the unroll differs across widths (axpy_geometry at the "
+                             f"probe's and the sweep's shapes, and the kernel's own): {unrolls}")
+    x = torch.randn((512, 512), generator=gen, device=dev)
+    y = torch.randn((512, 512), generator=gen, device=dev)
+    err = check_close("axpy", axpy_cuda(x, y, 2.0), ref.axpy_ref(x, y, 2.0), 1e-5, 1e-5)
+    xb, yb = x.bfloat16(), y.bfloat16()
+    check_close("axpy bf16", axpy_cuda(xb, yb, 2.0), ref.axpy_ref(xb, yb, 2.0), 2e-2, 2e-2)
+    row = {
+        "shape": "(512, 512) float32, tile (8, 512), 16-byte accesses",
+        "tolerance": "rtol 1e-5, atol 1e-5 (bf16: 2e-2)", "max_abs_err": err,
+        "ms": time_ms(torch, lambda: axpy_cuda(x, y, 2.0), 200),
+        "plain_ms": time_ms(torch, lambda: ref.axpy_ref(x, y, 2.0), 200),
+        "library_ms": time_ms(torch, lambda: torch.add(y, x, alpha=2.0), 200),
+        "bound_ms": 3 * x.numel() * 4 / HBM_BPS * 1e3, "bound_by": "bytes",
+    }
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        item = torch.tensor([], dtype=dtype).element_size()
+        for vb in VEC_BYTES:
+            for row_vecs, block_rows in ((13, 3), (1501, 3)):
+                cols = row_vecs * vb // item
+                xe, ye = (torch.randn((2 * block_rows, 2 * cols), generator=gen, device=dev)
+                          .to(dtype) for _ in range(2))
+                check_close(f"axpy {dtype} tile ({block_rows}, {cols}), {vb}-byte accesses",
+                            axpy_cuda(xe, ye, 2.0, block_rows=block_rows, block_cols=cols,
+                                      vec_bytes=vb), ref.axpy_ref(xe, ye, 2.0), tol, tol)
+    del x, y, xb, yb
+    x = torch.randn(AXPY_SWEEP_SHAPE, generator=gen, device=dev)
+    y = torch.randn(AXPY_SWEEP_SHAPE, generator=gen, device=dev)
+    nbytes = 3 * x.numel() * 4
+    library_ms = time_ms(torch, lambda: torch.add(y, x, alpha=2.0), 20)
+    sweep = []
+    for vb in VEC_BYTES:
+        def run(vb=vb):
+            return axpy_cuda(x, y, 2.0, block_cols=AXPY_SWEEP_SHAPE[1], vec_bytes=vb)
+
+        e = check_close(f"axpy sweep {vb}-byte accesses", run(), ref.axpy_ref(x, y, 2.0),
+                        1e-5, 1e-5)
+        ms = time_ms(torch, run, 20)
+        sweep.append({"vec_bytes": vb, "max_abs_err": e, "ms": ms, "gbps": nbytes / ms * 1e-6,
+                      "bound_ms": nbytes / HBM_BPS * 1e3, "library_ms": library_ms})
+    row["sweep_256mib"] = sweep
+    print(f"check axpy Fig 1.1 sweep, {AXPY_SWEEP_SHAPE} f32, tile (8, 2048): {sweep}", flush=True)
+    return row
+
+
+def copy_checks(torch, dev, gen) -> dict:
+    """stream_copy bit for bit in f32, bf16 and int32 at the probes' largest
+    footprint, and at the edges of its rounds (below one, whole ones, 16
+    bytes more, a tail of fewer than 16 bytes), timed at 128 MiB."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.membw import COPY_ROUND_BYTES, stream_copy
+
     x = torch.rand(MEMBW_SHAPE, generator=gen, device=dev)
-    got = stream_copy(x)
-    if not torch.equal(got, x):
-        raise AssertionError("stream_copy: the copy is not bit for bit")
-    for dt in (torch.bfloat16, torch.int32):
-        xd = (x * 1000).to(dt)
+    for xd in (x, (x * 1000).bfloat16(), (x * 1000).int()):
         if not torch.equal(stream_copy(xd), xd):
-            raise AssertionError(f"stream_copy {dt}: the copy is not bit for bit")
+            raise AssertionError(f"stream_copy {xd.dtype}: the copy is not bit for bit")
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        item = torch.tensor([], dtype=dtype).element_size()
+        for nbytes in (COPY_ROUND_BYTES - 48, 300 * COPY_ROUND_BYTES,
+                       300 * COPY_ROUND_BYTES + 16, 300 * COPY_ROUND_BYTES + 16 - item):
+            xe = (torch.rand((1, nbytes // item), generator=gen, device=dev) * 1000).to(dtype)
+            if not torch.equal(stream_copy(xe, block_rows=1, block_cols=xe.shape[1]), xe):
+                raise AssertionError(f"stream_copy {dtype} of {nbytes} bytes: not bit for bit")
     nbytes = x.numel() * 4
-    rows["stream_copy"] = {
-        "shape": "(65536, 512) float32, 128 MiB", "tolerance": "exact", "max_abs_err": 0.0,
+    return {
+        "shape": "(65536, 512) float32, 128 MiB",
+        "tolerance": "exact (f32, bf16, int32; also below one round, at 300 rounds and 16 bytes "
+                     "and a short tail past them)", "max_abs_err": 0.0,
         "ms": time_ms(torch, lambda: stream_copy(x), 20),
         "plain_ms": time_ms(torch, lambda: ref.copy_ref(x), 20),
         "library_ms": time_ms(torch, lambda: x.clone(), 20),
         "bound_ms": 2 * nbytes / HBM_BPS * 1e3, "bound_by": "bytes",
     }
+
+
+def strided_checks(torch, dev, gen) -> dict:
+    """strided_reduce at the probes' largest footprint."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.membw import strided_reduce
+
+    x = torch.rand(MEMBW_SHAPE, generator=gen, device=dev)
     errs, per_stride = [], {}
     for stride in (2, 3, 128):
         want = ref.strided_reduce_blocked_ref(x, stride, 64)
@@ -268,12 +333,11 @@ def membw_checks(torch, dev, gen) -> dict:
             "bound_ms": (sel_rows * MEMBW_SHAPE[1] * 4 + 4) / HBM_BPS * 1e3,
         }
         print(f"check strided_reduce stride {stride}: {per_stride[stride]}", flush=True)
-    rows["strided_reduce"] = {
+    return {
         "shape": "(65536, 512) float32, block_rows 64, stride 2 (also 3, 128)",
         "tolerance": "rtol 1e-4 against the blocked plain version", "max_abs_err": max(errs),
         **per_stride[2], "bound_by": "bytes",
     }
-    return rows
 
 
 def bound(flops: float, nbytes: float, peak: float) -> tuple:
@@ -506,9 +570,11 @@ def main_path(torch, dev) -> tuple:
     return counts, seconds
 
 
-def axpy_path(torch, dev) -> dict:
+def axpy_path(torch, dev) -> tuple:
     """Phase 5: the Ch. 1 experiment as the probe runs it, then Fig 1.1's
-    access-width sweep at an array far past the 50 MB L2."""
+    access-width sweep at an array far past the 50 MB L2, each width counted
+    the same way.  Returns the probe's launch counts and, by width, the
+    sweep's GB/s and launches."""
     from repro_torch.core import probes
     from repro_torch.kernels import _util
 
@@ -519,11 +585,18 @@ def axpy_path(torch, dev) -> dict:
         raise AssertionError(f"block-shape probe bypassed the axpy kernel: {res.meta} {counts}")
     print("block_shape_bandwidth GB/s by tile width (1 MiB arrays): "
           + ", ".join(f"{x}:{y:.1f}" for x, y in zip(res.x, res.y)) + f"; launches {counts}")
+    sweep = {}
     for vb in (4, 8, 16):
+        _util.reset_launch_counts()
         big = probes.probe_block_shape_bandwidth(
             footprint=256 << 20, col_widths=(2048,), device=dev, vec_bytes=vb)
-        print(f"access width {vb * 8}-bit, 256 MiB arrays: {big.y[0]:.1f} GB/s", flush=True)
-    return counts
+        launches = _util.launch_counts().get("axpy", 0)
+        if launches <= 0:
+            raise AssertionError(f"the {vb}-byte sweep bypassed the axpy kernel")
+        sweep[vb] = {"probe_gbps": big.y[0], "launches": launches}
+        print(f"access width {vb * 8}-bit, 256 MiB arrays: {big.y[0]:.1f} GB/s; "
+              f"launches {launches}", flush=True)
+    return counts, sweep
 
 
 def entry_point_path(torch, dev) -> dict:
@@ -785,7 +858,10 @@ def main() -> int:
     rows = kernel_checks(torch, dev)
     torch.cuda.empty_cache()
     counts, _ = main_path(torch, dev)
-    add_counts(counts, axpy_path(torch, dev))
+    probe_counts, sweep = axpy_path(torch, dev)
+    add_counts(counts, probe_counts)
+    for r in rows["axpy"]["sweep_256mib"]:
+        r.update(sweep[r["vec_bytes"]])
     add_counts(counts, entry_point_path(torch, dev))
     torch.cuda.empty_cache()
     add_counts(counts, lm_path(torch, dev))
@@ -805,7 +881,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
         entry.update({k: v for k, v in r.items()
-                      if k in ("latency_bound_ms", "tflops", "row_rel_err")
+                      if k in ("latency_bound_ms", "tflops", "row_rel_err", "sweep_256mib")
                       or k.endswith(("_hd112", "_bf16"))})
         line.append(entry)
     print(json.dumps({"kernels": line}))

@@ -26,6 +26,25 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
 }
 
+// Loads of data read once: the non-coherent path, not allocated in L1.
+__device__ __forceinline__ unsigned int ld_stream(const unsigned int* p) {
+  unsigned int r;
+  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(r) : "l"(p));
+  return r;
+}
+__device__ __forceinline__ uint2 ld_stream(const uint2* p) {
+  uint2 r;
+  asm("ld.global.nc.L1::no_allocate.v2.b32 {%0, %1}, [%2];" : "=r"(r.x), "=r"(r.y) : "l"(p));
+  return r;
+}
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.b32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

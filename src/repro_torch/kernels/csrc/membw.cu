@@ -15,15 +15,17 @@
 //
 // Design: the TPU kernels walk a sequential grid of (block_rows, block_cols)
 // tiles and carry the sum from step to step in one (1,1) output block.
-// Hopper runs blocks in parallel and in no order, so each kernel here runs a
+// Hopper runs blocks in parallel and in no order, so each reduction here runs a
 // grid sized by the wrapper (8 blocks of 256 threads per SM, enough loads in
 // flight to cover HBM latency) over the whole array in a grid-stride loop
 // with 16-byte accesses.  The reductions take two passes: pass 1 writes one
 // partial per block, pass 2 is one block that sums the partials.  Both passes
 // add in a fixed order, so the result is deterministic (atomics would not
-// be).  The wrappers' block_rows/block_cols keep the reference's meaning (the
-// tile the shape must divide into, and for strided_reduce the block the
-// stride restarts in); the CTA tile is the kernel's own.
+// be).  The copy keeps several loads in flight a thread (copy_kernel,
+// below).  The wrappers' block_rows/block_cols keep the
+// reference's meaning (the tile the shape must divide into, and for
+// strided_reduce the block the stride restarts in); the CTA tile is the
+// kernel's own.
 #include "common.cuh"
 
 constexpr int kThreads = 256;
@@ -88,20 +90,49 @@ strided_partials(const float* x, int sel_rows, int cols, int per, int block_rows
   if (threadIdx.x == 0) partials[blockIdx.x] = v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-copy_kernel(const uint4* x, uint4* out, long long n16, const unsigned char* xb,
-            unsigned char* ob, long long nbytes) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (long long i = tid; i < n16; i += step) out[i] = x[i];
-  const long long t = (n16 << 4) + tid;  // the nbytes % 16 trailing bytes
-  if (t < nbytes) ob[t] = xb[t];
+// stream_copy.  A thread that waits for each 16-byte load before it issues
+// the next keeps one access in flight, too few bytes to cover HBM latency
+// (Little's law).  Here each thread loads kCopyUnroll 16-byte vectors of a
+// round, blockDim apart so every warp access is coalesced, before it stores
+// any; the loads read through the non-coherent path without allocating in L1,
+// the stores are evict-first.  Blocks take rounds of blockDim * kCopyUnroll
+// vectors in a grid stride, so at any moment the blocks in flight work on
+// neighbouring addresses.  The wrapper sets the grid (kernels/membw.py::
+// copy_plan).  The last block's threads copy the nbytes % 16 tail bytes, one
+// each.  Every byte is moved unchanged: the copy is bit for bit for any dtype.
+// (A ring of 1-D bulk copies through shared memory, one issuing thread a
+// block, measured 2.8 % slower on the H100: PERF.md.)
+constexpr int kCopyUnroll = 2;  // kernels/membw.py::COPY_UNROLL
+
+__global__ void __launch_bounds__(1024)
+copy_kernel(const uint4* __restrict__ x, uint4* __restrict__ out, long long n16,
+            const unsigned char* __restrict__ xb, unsigned char* __restrict__ ob,
+            long long nbytes) {
+  const long long round = static_cast<long long>(blockDim.x) * kCopyUnroll;
+  for (long long base = blockIdx.x * round; base < n16; base += round * gridDim.x) {
+    uint4 v[kCopyUnroll];
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const long long i = base + k * blockDim.x + threadIdx.x;
+      if (i < n16) v[k] = ld_stream(x + i);
+    }
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const long long i = base + k * blockDim.x + threadIdx.x;
+      if (i < n16) __stcs(out + i, v[k]);
+    }
+  }
+  const long long t = (n16 << 4) + threadIdx.x;  // the nbytes % 16 tail bytes
+  if (blockIdx.x == gridDim.x - 1 && t < nbytes) ob[t] = xb[t];
 }
 
-extern "C" int repro_stream_copy(const void* x, long long nbytes, void* out, int blocks,
-                                 void* stream) {
+// ctas and threads are kernels/membw.py::copy_plan's.
+extern "C" int repro_stream_copy(const void* x, long long nbytes, void* out, int ctas,
+                                 int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  copy_kernel<<<blocks, kThreads, 0, s>>>(
+  if (ctas < 1 || threads < 32 || threads > 1024 || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  copy_kernel<<<ctas, threads, 0, s>>>(
       static_cast<const uint4*>(x), static_cast<uint4*>(out), nbytes >> 4,
       static_cast<const unsigned char*>(x), static_cast<unsigned char*>(out), nbytes);
   return static_cast<int>(cudaGetLastError());

@@ -9,26 +9,58 @@ of ``block_rows`` rows — the load-granularity probe (paper Tab 3.1).
 
 Their kernels (``csrc/membw.cu``) replace the Pallas ``_copy_kernel``,
 ``_reduce_kernel`` and ``_strided_reduce_kernel`` of ``repro/kernels/membw.py``.
-They are bound by bytes: 16-byte accesses from enough blocks to fill all
-SMs, and the reductions sum per-block partials in a second pass.  On a CUDA
-tensor each wrapper launches its kernel; a CPU tensor takes the plain version.
+They are bound by bytes and read 16 bytes per access from enough blocks to
+fill all SMs.  The reductions sum per-block partials in a second pass; each
+thread of the copy issues the loads of two vectors before it stores either
+(:func:`copy_plan` sets its grid).  On a CUDA tensor each wrapper launches its
+kernel; a CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _util, ref
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
-_COPY_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int)
+_COPY_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
 _STRIDED_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 )
 _THREADS = 256  # csrc/membw.cu::kThreads
 _BLOCKS_PER_SM = 8  # 2048 resident threads per SM / 256
+COPY_THREADS = 128
+COPY_UNROLL = 2  # 16-byte vectors a thread loads before it stores; csrc/membw.cu::kCopyUnroll
+COPY_BLOCKS_PER_SM = 128  # 8 waves of the 16 blocks of 128 threads an SM holds
+COPY_ROUND_BYTES = COPY_THREADS * COPY_UNROLL * 16  # one block's round
+
+
+class CopyPlan(NamedTuple):
+    """One launch of the copy kernel: ``ctas`` blocks of ``threads`` take
+    rounds of ``threads * unroll`` 16-byte vectors of the first
+    ``bulk_bytes`` in a grid stride (block b rounds b, b + ctas, ...), each
+    thread ``unroll`` vectors a round; the last block's threads copy the
+    ``tail_bytes`` after them.  The kernel takes ``ctas`` and ``threads``;
+    the unroll is its constant and the split into bulk and tail follows
+    from the size."""
+
+    ctas: int
+    threads: int
+    unroll: int
+    bulk_bytes: int
+    tail_bytes: int
+
+
+def copy_plan(nbytes: int, sms: int) -> CopyPlan:
+    """The copy of ``nbytes`` on a card of ``sms`` SMs: every whole 16 bytes
+    in rounds, one round a block up to 128 blocks an SM, then grid-stride."""
+    bulk = nbytes - nbytes % 16
+    rounds = -(-bulk // COPY_ROUND_BYTES)
+    ctas = max(1, min(rounds, COPY_BLOCKS_PER_SM * sms))
+    return CopyPlan(ctas, COPY_THREADS, COPY_UNROLL, bulk, nbytes - bulk)
 
 
 def _check_tiles(x: torch.Tensor, block_rows: int, block_cols: int) -> None:
@@ -57,8 +89,9 @@ def stream_copy(x: torch.Tensor, *, block_rows: int = 8, block_cols: int = 512) 
     _util.check_cuda_operand("x", x)
     out = torch.empty_like(x)
     nbytes = x.numel() * x.element_size()
+    plan = copy_plan(nbytes, torch.cuda.get_device_properties(x.device).multi_processor_count)
     _util.launch("stream_copy", "repro_stream_copy", _COPY_ARGTYPES, x.device,
-                 x.data_ptr(), nbytes, out.data_ptr(), _grid(x, -(-nbytes // 16)))
+                 x.data_ptr(), nbytes, out.data_ptr(), plan.ctas, plan.threads)
     return out
 
 

@@ -10,7 +10,9 @@ from repro_torch.core.pchase import single_cycle_permutation
 from repro_torch.core.timing import time_fn
 from repro_torch.kernels import _util, ref
 from repro_torch.kernels import api as tapi
+from repro_torch.kernels.axpy import axpy_geometry
 from repro_torch.kernels.matmul import matmul_cuda
+from repro_torch.kernels.membw import COPY_BLOCKS_PER_SM, COPY_ROUND_BYTES
 
 pytestmark = pytest.mark.cuda
 
@@ -56,6 +58,48 @@ def test_axpy_kernel(dev, dtype, tol, vec_bytes, shape, block_cols):
     x, y = _rand(shape, dev, dtype, 1), _rand(shape, dev, dtype, 2)
     got = tapi.axpy(x, y, 2.5, block_cols=block_cols, vec_bytes=vec_bytes)
     torch.testing.assert_close(got, ref.axpy_ref(x, y, 2.5), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-3)])
+@pytest.mark.parametrize("vec_bytes", [4, 8, 16])
+@pytest.mark.parametrize("row_vecs,block_rows", [(13, 3), (1501, 3), (7, 5)])
+def test_axpy_kernel_partial_rounds(dev, dtype, tol, vec_bytes, row_vecs, block_rows):
+    """Tiles of an odd number of vectors, so never a multiple of the unroll:
+    39 and 35 vectors take one masked round of one warp, 4503 take two rounds
+    of 1024 threads, the second partial; 2 x 2 tiles, so the offsets of every
+    tile but the first are exercised too."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    block_cols = row_vecs * vec_bytes // itemsize
+    shape = (2 * block_rows, 2 * block_cols)
+    geo = axpy_geometry(shape, block_rows, block_cols, vec_bytes, itemsize)
+    assert (block_rows * row_vecs) % geo.unroll
+    x, y = _rand(shape, dev, dtype, 1), _rand(shape, dev, dtype, 2)
+    got = tapi.axpy(x, y, 2.5, block_rows=block_rows, block_cols=block_cols, vec_bytes=vec_bytes)
+    torch.testing.assert_close(got, ref.axpy_ref(x, y, 2.5), rtol=tol, atol=tol)
+
+
+def test_axpy_kernel_refuses_a_geometry_short_of_the_tile(dev):
+    from repro_torch.kernels import axpy as kaxpy
+
+    x = _rand((8, 512), dev)
+    out = torch.empty_like(x)
+    geo = axpy_geometry(x.shape, 8, 512, 16, 4)
+    for threads, rounds in ((geo.threads, geo.rounds - 1), (geo.threads // 2, geo.rounds)):
+        with pytest.raises(RuntimeError, match="axpy kernel launch failed"):
+            _util.launch("axpy", "repro_axpy", kaxpy._ARGTYPES, x.device, 0, 16, 1.0,
+                         x.data_ptr(), x.data_ptr(), out.data_ptr(), 8, 512, 8, 512, threads,
+                         rounds)
+
+
+def test_axpy_kernel_unroll_is_the_geometrys_at_every_width(dev):
+    """The built kernel reports one unroll for every access width, the one
+    axpy_geometry plans with."""
+    from repro_torch.kernels.axpy import VEC_BYTES, kernel_unroll
+
+    planned = axpy_geometry((8, 512), 8, 512, 16, 4).unroll
+    assert {kernel_unroll(vb) for vb in VEC_BYTES} == {planned}
+    assert kernel_unroll(2) == 0
 
 
 @pytest.mark.parametrize("mkn", [(128, 128, 128), (300, 200, 100), (129, 7, 65), (512, 256, 384),
@@ -112,6 +156,52 @@ def test_stream_copy_kernel(dev, dtype, shape, block_cols):
     torch.cuda.synchronize()
     assert _util.launch_counts()["stream_copy"] == before + 1
     assert got.data_ptr() != x.data_ptr() and torch.equal(got, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("rounds,extra", [
+    (0, COPY_ROUND_BYTES - 48),  # below one round
+    (3, 0), (300, 0),  # whole rounds, one a block
+    (3, 16), (300, 16),  # and 16 bytes more: a partial round
+    (3, "short"), (300, "short"),  # and a tail of fewer than 16 bytes
+    ("grid", 16), ("grid", "short"),  # two grid strides and a few rounds more
+])
+def test_stream_copy_round_edges(dev, dtype, rounds, extra):
+    """Sizes at the edges of the copy's rounds; a short tail is 12 bytes of
+    4-byte elements or 10 of bf16, copied by threads after the whole 16s.
+    "grid" takes every block round three times, the last time partially."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    if rounds == "grid":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rounds = 2 * COPY_BLOCKS_PER_SM * sms + 5
+    if extra == "short":
+        extra = 12 if item == 4 else 10
+    n = (rounds * COPY_ROUND_BYTES + extra) // item
+    x = _rand((1, n), dev, scale=100.0).to(dtype)
+    got = tapi.stream_copy(x, block_rows=1, block_cols=n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_stream_copy_writes_nothing_past_the_end(dev, dtype):
+    """x is a view at the start of a larger storage of other values, and the
+    output the start of a larger buffer of a guard pattern: a kernel that
+    copied past the tensor's last byte would change the guard."""
+    from repro_torch.kernels import membw
+
+    item = torch.tensor([], dtype=dtype).element_size()
+    n = (3 * COPY_ROUND_BYTES + 16 + 12) // item  # a partial round and a 12-byte tail
+    src = _rand((n + 4096,), dev, scale=100.0).to(dtype)
+    x = src[:n].view(1, n)
+    guard = torch.full((n + 4096,), 77, dtype=dtype, device=dev)
+    plan = membw.copy_plan(n * item, torch.cuda.get_device_properties(dev).multi_processor_count)
+    _util.launch("stream_copy", "repro_stream_copy", membw._COPY_ARGTYPES, x.device,
+                 x.data_ptr(), n * item, guard.data_ptr(), plan.ctas, plan.threads)
+    torch.cuda.synchronize()
+    assert torch.equal(guard[:n], src[:n])
+    assert bool((guard[n:] == 77).all())
+    assert torch.equal(tapi.stream_copy(x, block_rows=1, block_cols=n), x)
 
 
 @pytest.mark.parametrize("stride", [1, 2, 3, 8, 64, 128])

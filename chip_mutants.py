@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s kernel checks, on one CUDA card.
 
-    python3 chip_mutants.py [--out FILE] [--only flash|bandwidth]
+    python3 chip_mutants.py [--out FILE] [--only flash|bandwidth|matmul|ssm]
 
 Each mutant is a copy of ``src/repro_torch``, ``chip_smoke.py`` and the card
 tests under ``build/mutants/<name>/`` with one deliberate fault in a kernel
@@ -19,6 +19,17 @@ family:
   ``chip_smoke.axpy_checks`` and ``chip_smoke.copy_checks``, then the card
   tests of both kernels (``tests/test_torch_cuda.py -k "axpy or
   stream_copy"``).  A mutant is caught when a check or a test fails.
+- ``matmul``: faults of the tensor-core matmul (its fp8 promotion, the
+  8-bit B transpose, its K loop, its store and its casts).
+  ``chip_smoke.matmul_lp_checks`` (every instance against the plain version
+  at 2048^3, 4096^3 and 300 x 200 x 100), then the card tests of the matmul
+  (``-k matmul``).  A mutant is caught when a check or a test fails.
+- ``ssm``: faults of the ssm_scan kernel that change y by ~2 % where they
+  act.  ``chip_smoke.ssm_bf16_case`` at zamba2-7b's shape, then
+  ``check_close`` (rtol = atol = 2e-2 of the output's largest value) and
+  ``check_rows`` (each row's ||err|| / ||want|| within SSM_ROW_RTOL of the
+  fp32 plain output).  A mutant is caught when it fails ``check_rows`` or
+  the run; each is meant to pass ``check_close``.
 
 Prints one JSON object of the verdicts and times (also to ``--out``).
 Exits 0 when the tree passes every check and every mutant is caught.
@@ -37,6 +48,9 @@ KERNELS = os.path.join("src", "repro_torch", "kernels")
 FLASH = os.path.join(KERNELS, "csrc", "flash_attention.cu")
 AXPY = os.path.join(KERNELS, "csrc", "axpy.cu")
 MEMBW = os.path.join(KERNELS, "csrc", "membw.cu")
+MATMUL = os.path.join(KERNELS, "csrc", "matmul.cu")
+COMMON = os.path.join(KERNELS, "csrc", "common.cuh")
+SSM = os.path.join(KERNELS, "csrc", "ssm_scan.cu")
 ARCHS = ("gemma-2b", "zamba2-7b")  # chip_smoke.FLASH_MODEL_SHAPES
 
 # name: (what the fault does, text of the kernel, its replacement).  All but
@@ -119,11 +133,70 @@ BANDWIDTH_MUTANTS = {
 }
 
 
+MATMUL_MUTANTS = {
+    "fp8_unpromoted": (
+        "fp8 accumulates all of K in the tensor cores' accumulator, never promoted to fp32",
+        [(MATMUL, "  constexpr bool kPromote = std::is_same<TI, __nv_fp8_e4m3>::value;\n",
+          "  constexpr bool kPromote = false;\n")],
+    ),
+    "int8_b_not_transposed": (
+        "int8's B reaches the kernel as it lies, (K, N), where the kernel reads B^T (N, K)",
+        [(os.path.join(KERNELS, "matmul.py"),
+          "    b = transpose8(b) if a.element_size() == 1 else _tma_operand(b)\n",
+          "    b = transpose8(b) if a.dtype == torch.float8_e4m3fn else _tma_operand(b)\n")],
+    ),
+    "last_k_tile_dropped": (
+        "the tensor-core kernel stops one K tile short",
+        [(MATMUL, "  const int n_k = (K + kK - 1) / kK;\n",
+          "  const int n_k = (K + kK - 1) / kK - 1;\n")],
+    ),
+    "edge_column_past_n": (
+        "the store's column mask lets the column at N through: one value past each row's end",
+        [(MATMUL, "      if (row < M && col < N)\n", "      if (row < M && col <= N)\n")],
+    ),
+    "int8_output_wraps": (
+        "int8 outputs wrap instead of saturating (torch's .to)",
+        [(MATMUL, "        put(static_cast<int8_t*>(c), static_cast<int8_t>(max(-128, min(127, v0))),\n"
+                  "            static_cast<int8_t>(max(-128, min(127, v1))));\n",
+          "        put(static_cast<int8_t*>(c), static_cast<int8_t>(v0), static_cast<int8_t>(v1));\n")],
+    ),
+    "fp8_output_saturates": (
+        "fp8 outputs saturate to 448 (cvt's satfinite alone) instead of giving NaN past it",
+        [(COMMON, "  r.__x = fabsf(v) <= 464.f ? __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3)\n",
+          "  r.__x = true ? __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3)\n")],
+    ),
+}
+
+# name: (what the fault does, text of the kernel, its replacement): each
+# changes y by ~2 % where it acts, under check_close's limit (2e-2 of the
+# largest |y| beside an error of 2e-2 of the value itself) and over the row
+# check's (5e-3)
+_W = "            w[ii] = (s <= t && t < L) ? sc[ii][jj] * clip_exp(acum[t] - acum[s]) : 0.f;\n"
+SSM_MUTANTS = {
+    "late_scores_scaled": (
+        "chunks from step 512 on scale the intra-chunk scores by 0.98",
+        _W, _W.replace("sc[ii][jj] *", "(t0 >= 512 ? 0.98f : 1.f) * sc[ii][jj] *"),
+    ),
+    "late_decay_weakened": (
+        "chunks from step 512 on take 0.97 of the decay between two steps in the scores",
+        _W, _W.replace("clip_exp(acum[t] - acum[s])",
+                       "clip_exp((t0 >= 512 ? 0.97f : 1.f) * (acum[t] - acum[s]))"),
+    ),
+    "one_head_scaled": (
+        "head 7's y is scaled by 0.98",
+        "            yr[p] = from_f32<T>(v);\n",
+        "            yr[p] = from_f32<T>(h == 7 ? 0.98f * v : v);\n",
+    ),
+}
+
 MUTANTS = {
     **{name: ("flash", what, [(FLASH, old, new)])
        for name, (what, old, new) in FLASH_MUTANTS.items()},
     **{name: ("bandwidth", what, edits) for name, (what, edits) in BANDWIDTH_MUTANTS.items()},
+    **{name: ("matmul", what, edits) for name, (what, edits) in MATMUL_MUTANTS.items()},
+    **{name: ("ssm", what, [(SSM, old, new)]) for name, (what, old, new) in SSM_MUTANTS.items()},
 }
+FAMILIES = ("flash", "bandwidth", "matmul", "ssm")
 
 FLASH_CASE = r"""
 import json, sys
@@ -172,7 +245,57 @@ for check in ("axpy_checks", "copy_checks"):
     torch.cuda.empty_cache()
 print("VERDICTS " + json.dumps(out))
 """
-CARD_TESTS = ("tests/test_torch_cuda.py", "-k", "axpy or stream_copy")
+MATMUL_CASE = r"""
+import json
+import torch
+import chip_smoke as cs
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.matmul import matmul_cuda
+
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(0)
+# fp8 into fp32 at K 4096, each row against the plain fp32 output: the
+# tensor cores' accumulation error, promoted or not (recorded, not checked)
+a, b = cs.matmul_operands(torch, dev, gen, torch.float8_e4m3fn, 4096, 4096, 4096)
+out = {"fp8_row_rel_err_k4096": cs.row_rel_err(matmul_cuda(a, b, out_dtype=torch.float32),
+                                               ref.matmul_ref(a, b, torch.float32))}
+del a, b
+try:
+    rows = cs.matmul_lp_checks(torch, dev, gen)
+    out["matmul_lp_checks"] = {"passed": True, **{
+        k: {"row_rel_err": r["row_rel_err"], "ms": r["ms"]} for k, r in rows.items()
+        if k != "matmul_transpose"}}
+except AssertionError as e:
+    out["matmul_lp_checks"] = {"passed": False, "message": str(e)[:500]}
+print("VERDICTS " + json.dumps(out))
+"""
+
+SSM_CASE = r"""
+import json
+import torch
+import chip_smoke as cs
+
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(0)
+_, got, want, want32 = cs.ssm_bf16_case(torch, dev, gen)
+out = {}
+for check, run in (
+    ("check_close", lambda: cs.check_close("ssm", got.float(), want.float(), 2e-2, 2e-2)),
+    ("check_rows", lambda: cs.check_rows("ssm", got, want32, cs.SSM_ROW_RTOL)),
+):
+    try:
+        out[check] = {"passed": True, "err": run()}
+    except AssertionError as e:
+        out[check] = {"passed": False, "message": str(e)}
+out["max_abs_err"] = cs.max_abs_err(got.float(), want.float())
+out["row_rel_err"] = cs.row_rel_err(got, want32)
+print("VERDICTS " + json.dumps(out))
+"""
+CASES = {"flash": FLASH_CASE, "bandwidth": BANDWIDTH_CASE, "matmul": MATMUL_CASE,
+         "ssm": SSM_CASE}
+CARD_TESTS = {"bandwidth": "axpy or stream_copy", "matmul": "matmul"}
+CARD_TEST_FILE = "tests/test_torch_cuda.py"
 
 
 def make_copy(name: str, edits: list) -> str:
@@ -184,7 +307,7 @@ def make_copy(name: str, edits: list) -> str:
                     os.path.join(dst, "src", "repro_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     os.makedirs(os.path.join(dst, "tests"))
-    for rel in ("chip_smoke.py", "pyproject.toml", "tests/conftest.py", CARD_TESTS[0]):
+    for rel in ("chip_smoke.py", "pyproject.toml", "tests/conftest.py", CARD_TEST_FILE):
         shutil.copy(os.path.join(ROOT, rel), os.path.join(dst, rel))
     for rel, old, new in edits:
         path = os.path.join(dst, rel)
@@ -200,18 +323,18 @@ def make_copy(name: str, edits: list) -> str:
 
 def run_case(root: str, family: str) -> dict:
     env = {**os.environ, "PYTHONPATH": os.path.join(root, "src") + os.pathsep + root}
-    case = FLASH_CASE if family == "flash" else BANDWIDTH_CASE
-    proc = subprocess.run([sys.executable, "-c", case], cwd=root, capture_output=True, text=True,
-                          timeout=900, env=env)
+    proc = subprocess.run([sys.executable, "-c", CASES[family]], cwd=root, capture_output=True,
+                          text=True, timeout=900, env=env)
     for line in proc.stdout.splitlines():
         if line.startswith("VERDICTS "):
             res = json.loads(line.removeprefix("VERDICTS "))
             break
     else:
         return {"error": f"exit {proc.returncode}", "stderr": proc.stderr[-3000:]}
-    if family == "bandwidth":
+    if family in CARD_TESTS:
         tests = subprocess.run([sys.executable, "-m", "pytest", "-q", "-rf", "-p",
-                                "no:cacheprovider", "-m", "cuda", *CARD_TESTS], cwd=root,
+                                "no:cacheprovider", "-m", "cuda", CARD_TEST_FILE, "-k",
+                                CARD_TESTS[family]], cwd=root,
                                capture_output=True, text=True, timeout=900, env=env)
         failed = [ln.split(" ")[1] for ln in tests.stdout.splitlines()
                   if ln.startswith("FAILED ")]
@@ -230,9 +353,13 @@ def caught(family: str, r: dict) -> dict:
             "check_rows_fails": ran and not all(r[a]["check_rows"]["passed"] for a in ARCHS),
         }
     ran = "error" not in r
+    if family == "ssm":
+        return {"run_fails": not ran,
+                **{f"{c}_fails": ran and not r[c]["passed"] for c in ("check_close", "check_rows")}}
+    checks = ("axpy_checks", "copy_checks") if family == "bandwidth" else ("matmul_lp_checks",)
     return {
         "run_fails": not ran,
-        **{f"{c}_fails": ran and not r[c]["passed"] for c in ("axpy_checks", "copy_checks")},
+        **{f"{c}_fails": ran and not r[c]["passed"] for c in checks},
         "card_tests_fail": ran and r["card_tests"]["exit"] != 0,
     }
 
@@ -240,14 +367,14 @@ def caught(family: str, r: dict) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the JSON verdicts here")
-    parser.add_argument("--only", choices=("flash", "bandwidth"), help="one family of mutants")
+    parser.add_argument("--only", choices=FAMILIES, help="one family of mutants")
     args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_mutants: no CUDA device visible", file=sys.stderr)
         return 1
-    families = [args.only] if args.only else ["flash", "bandwidth"]
+    families = [args.only] if args.only else list(FAMILIES)
     results = {"tree": {fam: run_case(ROOT, fam) for fam in families}}
     for name, (fam, what, edits) in MUTANTS.items():
         if fam in families:
@@ -261,11 +388,11 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             f.write(text)
-    flash_caught = all(v["run_fails"] or v["check_rows_fails"]
-                       for name, v in summary.items() if MUTANTS[name][0] == "flash")
-    bandwidth_caught = all(any(v.values())
-                           for name, v in summary.items() if MUTANTS[name][0] == "bandwidth")
-    return 0 if tree_ok and flash_caught and bandwidth_caught else 1
+    rows_caught = all(v["run_fails"] or v["check_rows_fails"]
+                      for name, v in summary.items() if MUTANTS[name][0] in ("flash", "ssm"))
+    others_caught = all(any(v.values()) for name, v in summary.items()
+                        if MUTANTS[name][0] in ("bandwidth", "matmul"))
+    return 0 if tree_ok and rows_caught and others_caught else 1
 
 
 if __name__ == "__main__":

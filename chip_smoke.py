@@ -13,8 +13,14 @@ Phases, in order; any failure exits non-zero before the final line:
    call of the same function, beside the least time the card could take;
 4. the main path: ``python -m repro_torch.bench run dissect --full`` through
    the CLI function, with the launch counts zeroed before and read after; the
-   pointer-chase, stream and matmul probes must have gone through the
-   kernels; the fitted model is checked and compared with the H100 datasheet;
+   pointer-chase, stream, matmul and op-latency probes must have gone through
+   the kernels; the fitted model is checked and compared with the H100
+   datasheet, and the op-latency table (ns per op) printed;
+4b. the precision ladder: ``bench run gemm_lp[cuda] gemm_lp[torch] gemm[cuda]
+   --full`` through the CLI function, counted the same way: every matmul
+   instance (fp32, bf16, fp16, int8, fp8 and the 8-bit B transpose) must
+   launch, no record may error or be skipped, and the measured ladder at the
+   top size is printed beside the datasheet's;
 5. ``probe_block_shape_bandwidth`` (the Ch. 1 axpy experiment), counted the
    same way, and the access-width sweep of Fig 1.1 at an HBM-sized array,
    each width counted on its own (phase 3 times the same sweep beside
@@ -32,12 +38,15 @@ Phases, in order; any failure exits non-zero before the final line:
    and 14 flash_attention launches), ``prefill`` (14 flash_attention) and
    16 ``decode_step``s on 4 sequences of 1000 tokens; the same requests
    through the plain path (``ssm_impl="xla"``, ``attn_impl="blockwise"``)
-   are the reference;
+   are the reference; then one forward under ``kernel_policy(autotune=True)``
+   at the chunk the autotuner picks for the H100 (512), which must reach the
+   ssm_scan kernel at that chunk and agree with the chunk-256 forward;
 9. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Rates used for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s HBM,
-67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16 dense on them.
+67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16 and fp16 dense on
+them, 1,979 TFLOP/s (TOP/s) fp8 and int8.
 """
 from __future__ import annotations
 
@@ -55,8 +64,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+FP8_FLOPS = 1979e12  # fp8 and int8 (TOP/s)
+MATMUL_LP = {  # tensor-core instance: input dtype name, datasheet peak
+    "matmul_bf16": ("bfloat16", BF16_FLOPS), "matmul_fp16": ("float16", BF16_FLOPS),
+    "matmul_int8": ("int8", FP8_FLOPS), "matmul_fp8": ("float8_e4m3fn", FP8_FLOPS),
+}
 KERNELS = ("pchase", "stream_copy", "stream_reduce", "strided_reduce", "axpy", "matmul",
-           "flash_attention", "ssm_scan")
+           *MATMUL_LP, "matmul_transpose", "flash_attention", "ssm_scan", "op_latency")
 SOURCES = {
     "pchase": ("src/repro_torch/kernels/csrc/pchase.cu", "src/repro/kernels/pchase.py:22"),
     "stream_copy": ("src/repro_torch/kernels/csrc/membw.cu", "src/repro/kernels/membw.py:19"),
@@ -64,6 +78,10 @@ SOURCES = {
     "strided_reduce": ("src/repro_torch/kernels/csrc/membw.cu", "src/repro/kernels/membw.py:67"),
     "axpy": ("src/repro_torch/kernels/csrc/axpy.cu", "src/repro/kernels/axpy.py:16"),
     "matmul": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:58"),
+    **{k: ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:58")
+       for k in (*MATMUL_LP, "matmul_transpose")},
+    "op_latency": ("src/repro_torch/kernels/csrc/op_latency.cu",
+                   "src/repro/core/probes.py:149"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:49"),
     "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu", "src/repro/kernels/ssm_scan.py:17"),
@@ -75,6 +93,18 @@ LOSS_RTOL = 1e-3  # zamba2 loss against the plain path, relative; measured ~2e-5
 # max over rows of ||got - want|| / ||want||; p's and the output's bf16
 # roundings come to a few 1e-3
 FLASH_ROW_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# ssm_scan's bf16 rows against the plain version's fp32 output on the same
+# bf16 inputs: y's own bf16 rounding measured 2.5e-3 (the kernel's error
+# equal to it), so twice that
+SSM_ROW_RTOL = 5e-3
+# matmul's fp32 outputs, each row against the plain version's fp32 output:
+# 16-bit inputs differ by the sum order (a few 1e-6 at K 4096); fp8 by the
+# tensor cores' ~14-bit accumulation within each 128 of K (~1e-4, with the
+# promotion to fp32 in between; the matmul_fp8 row of the run prints it).
+# 16-bit outputs: twice the plain output's own rounding to that type,
+# measured in the run.
+MATMUL_F32_ROW_RTOL = {"bfloat16": 1e-5, "float16": 1e-5, "float8_e4m3fn": 5e-4}
+MATMUL_SHAPES = ((2048, 2048, 2048), (4096, 4096, 4096), (300, 200, 100))
 FLASH_MODEL_SHAPES = {"gemma-2b": (8, 1, 256), "zamba2-7b": (32, 32, 112)}  # H, Hkv, hd
 MEMBW_SHAPE = (65536, 512)  # 128 MiB of fp32: the probes' largest footprint
 AXPY_SWEEP_SHAPE = (32768, 2048)  # Fig 1.1's sweep: 256 MiB of fp32 an array
@@ -183,15 +213,12 @@ def kernel_checks(torch, dev) -> dict:
 
     rows["axpy"] = axpy_checks(torch, dev, gen)
 
-    # matmul: the largest full-mode size, fp32 with no TF32 anywhere; bf16 beside
-    # torch.matmul bf16 records the gap the gemm_lp slice's tensor-core path closes
+    # matmul: the largest full-mode size, fp32 with no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     nn = 2048
     a = torch.randn((nn, nn), generator=gen, device=dev) * 0.3
     b = torch.randn((nn, nn), generator=gen, device=dev) * 0.3
     err = check_close("matmul", matmul_cuda(a, b), ref.matmul_ref(a, b), 1e-4, 1e-4)
-    ab, bb = a.bfloat16(), b.bfloat16()
-    err_bf16 = check_close("matmul bf16", matmul_cuda(ab, bb), ref.matmul_ref(ab, bb), 3e-2, 3e-2)
     rows["matmul"] = {
         "shape": "(2048, 2048) @ (2048, 2048) float32", "tolerance": "rtol 1e-4, atol 1e-4",
         "max_abs_err": err,
@@ -200,25 +227,150 @@ def kernel_checks(torch, dev) -> dict:
         "library_ms": time_ms(torch, lambda: torch.matmul(a, b), 10),
         "bound_ms": max(2 * nn**3 / FP32_FLOPS, 3 * nn * nn * 4 / HBM_BPS) * 1e3,
         "bound_by": "operations",
-        "max_abs_err_bf16": err_bf16,
-        "ms_bf16": time_ms(torch, lambda: matmul_cuda(ab, bb), 10),
-        "plain_ms_bf16": time_ms(torch, lambda: ref.matmul_ref(ab, bb), 10),
-        "library_ms_bf16": time_ms(torch, lambda: torch.matmul(ab, bb), 10),
-        "bound_ms_bf16": max(2 * nn**3 / BF16_FLOPS, 3 * nn * nn * 2 / HBM_BPS) * 1e3,
     }
-    print(f"check matmul bf16 2048^3 (FP32 pipes; torch.matmul bf16 on the tensor cores): "
-          f"{ {k: v for k, v in rows['matmul'].items() if k.endswith('_bf16')} }", flush=True)
-    del a, b, ab, bb
+    del a, b
+    rows.update(matmul_lp_checks(torch, dev, gen))
     rows["stream_copy"] = copy_checks(torch, dev, gen)
     rows["strided_reduce"] = strided_checks(torch, dev, gen)
     rows["flash_attention"] = flash_checks(torch, dev, gen)
     rows["ssm_scan"] = ssm_checks(torch, dev, gen)
+    rows["op_latency"] = op_latency_checks(torch, dev)
     for name, r in rows.items():
         print(f"check {name}: {r['shape']}; max_abs_err {r['max_abs_err']} ({r['tolerance']}); "
               f"kernel {r['ms']} ms, plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
               f"bound {r['bound_ms']} ms ({r['bound_by']})", flush=True)
     print(f"check pchase latency chain at the datasheet's {rows['pchase']['latency_level']} "
           f"latency: {rows['pchase']['latency_bound_ms']} ms (spec-sheet figure)", flush=True)
+    return rows
+
+
+def matmul_operands(torch, dev, gen, dtype, m, k, n):
+    """Seeded operands: int8 uniform over its range, the floats N(0, 1) (fp8
+    N(0, 2), so an fp8 output holds NaNs past 448 beside numbers)."""
+    if dtype == torch.int8:
+        return [torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int32)
+                .to(dtype) for shape in ((m, k), (k, n))]
+    scale = 2.0 if dtype == torch.float8_e4m3fn else 1.0
+    return [(torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+            for shape in ((m, k), (k, n))]
+
+
+def matmul_agreement(torch, name, got, a, b, out) -> dict:
+    """``got`` (a @ b into ``out``) against the plain version: int outputs
+    exact, saturation included; fp8 NaN at the same places away from the
+    line of 464 (where the two fp32 sums may round either way) and within
+    fp8's rounding elsewhere; the floats row by row against the plain fp32
+    output (check_rows; limits at MATMUL_F32_ROW_RTOL)."""
+    from repro_torch.kernels import ref
+
+    want = ref.matmul_ref(a, b, out)
+    if out in (torch.int32, torch.int8) or a.dtype == torch.int8:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: {int((got != want).sum())} entries differ from the "
+                                 f"plain version's (exact expected)")
+        return {"max_abs_err": 0.0}
+    want32 = ref.matmul_ref(a, b, torch.float32)
+    if out == torch.float8_e4m3fn:
+        sure = (want32.abs() - ref.FP8_E4M3_NAN_PAST).abs() > 1e-3 * ref.FP8_E4M3_NAN_PAST
+        gf, wf = got.float(), want.float()
+        if not torch.equal(torch.isnan(gf)[sure], torch.isnan(wf)[sure]):
+            raise AssertionError(f"{name}: NaN at other places than the plain version's")
+        fin = ~torch.isnan(gf) & ~torch.isnan(wf)
+        err = check_close(name, gf[fin], wf[fin], 0.125, 0.125)
+        return {"max_abs_err": err, "nan_share": float(torch.isnan(gf).float().mean())}
+    dt = str(a.dtype).removeprefix("torch.")
+    limit = (MATMUL_F32_ROW_RTOL[dt] if out == torch.float32
+             else 2 * row_rel_err(want32.to(out), want32))
+    return {"max_abs_err": max_abs_err(got, want), "row_rel_err": check_rows(name, got, want32,
+                                                                              limit),
+            "row_rel_limit": limit}
+
+
+def matmul_lp_checks(torch, dev, gen) -> dict:
+    """The tensor-core matmul instances: each (input, output) pair the gemm
+    suites run (into fp32, int32 for int8) and the default outputs (the input
+    type: int8 saturating, fp8 NaN past 448) at 2048^3, 4096^3 and 300 x 200
+    x 100, against the plain version; then each instance timed at 2048^3 and
+    4096^3 beside the plain version, the library call (torch.matmul for
+    bf16/fp16, torch._int_mm, torch._scaled_mm with unit scales and B handed
+    over column-major, made untimed) and the bound, and the 8-bit B
+    transpose on its own."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.matmul import matmul_cuda, transpose8
+
+    rows, transpose = {}, {}
+    for kernel, (dt_name, peak) in MATMUL_LP.items():
+        dtype = getattr(torch, dt_name)
+        acc = torch.int32 if dtype == torch.int8 else torch.float32
+        outs = (acc, dtype) + ((torch.bfloat16,) if dtype == torch.float8_e4m3fn else ())
+        errs = {}
+        for m, k, n in MATMUL_SHAPES:
+            a, b = matmul_operands(torch, dev, gen, dtype, m, k, n)
+            for out in outs:
+                key = f"{str(out).removeprefix('torch.')}_{m}x{k}x{n}"
+                errs[key] = matmul_agreement(
+                    torch, f"{kernel} -> {out} at {m}x{k}x{n}",
+                    matmul_cuda(a, b, out_dtype=out), a, b, out)
+            if m not in (2048, 4096):
+                continue
+            es, oes = dtype.itemsize, acc.itemsize
+            flops, nbytes = 2 * m * n * k, (m * k + k * n) * es + m * n * oes
+            bound_ms, bound_by = bound(flops, nbytes, peak)
+            if dtype == torch.int8:
+                def library(a=a, b=b):
+                    return torch._int_mm(a, b)
+            elif dtype == torch.float8_e4m3fn:
+                one, b_cols = torch.ones((), device=dev), b.t().contiguous().t()
+
+                def library(a=a, b_cols=b_cols, one=one):
+                    return torch._scaled_mm(a, b_cols, scale_a=one, scale_b=one,
+                                            out_dtype=torch.float32)
+            else:
+                def library(a=a, b=b):
+                    return torch.matmul(a, b)
+            ms = time_ms(torch, lambda a=a, b=b: matmul_cuda(a, b, out_dtype=acc), 10)
+            times = {"ms": ms, "tflops": flops / ms * 1e-9,
+                     "library_ms": time_ms(torch, library, 10),
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+            if m == 2048:
+                times["plain_ms"] = time_ms(torch, lambda a=a, b=b: ref.matmul_ref(a, b, acc), 5)
+            if dtype.itemsize == 1:  # the B^T pass, inside the timed call above
+                times["transpose_ms"] = time_ms(torch, lambda b=b: transpose8(b), 10)
+                if dtype == torch.int8:
+                    tbytes = 2 * k * n
+                    transpose[m] = {
+                        "ms": times["transpose_ms"],
+                        "plain_ms": time_ms(torch, lambda b=b: ref.transpose8_ref(b, k), 10),
+                        "library_ms": time_ms(torch, lambda b=b: b.t().contiguous(), 10),
+                        "bound_ms": tbytes / HBM_BPS * 1e3}
+            if m == 4096:
+                rows[kernel].update({f"{key}_4096": v for key, v in times.items()})
+            else:
+                rows[kernel] = {
+                    "shape": f"(2048, 2048) @ (2048, 2048) {dt_name} -> {acc}".replace(
+                        "torch.", ""), **times}
+            del a, b
+        rows[kernel].update({
+            "tolerance": "int8: exact (int32 and saturating int8 outputs); floats: each row's "
+                         "||err|| / ||want|| against the plain fp32 output within "
+                         "MATMUL_F32_ROW_RTOL (fp32 out) or twice the plain output's own "
+                         "rounding (16-bit out); fp8 out: NaN where the plain version's is, "
+                         "away from 464, else rtol/atol 0.125; at 2048^3, 4096^3, 300x200x100",
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "row_rel_err": max((e.get("row_rel_err", 0.0) for e in errs.values()), default=0.0),
+            "agreement": errs,
+        })
+        print(f"check {kernel}: {rows[kernel]}", flush=True)
+    rows["matmul_transpose"] = {
+        "shape": "int8 B (2048, 2048) -> B^T (2048, 2048)", "tolerance": "exact",
+        "max_abs_err": 0.0, **transpose[2048], "bound_by": "bytes",
+        **{f"{k}_4096": v for k, v in transpose[4096].items()},
+    }
+    for k, n in ((2048, 2048), (100, 200), (7, 33)):
+        b = matmul_operands(torch, dev, gen, torch.int8, 1, k, n)[1]
+        if not torch.equal(transpose8(b), ref.transpose8_ref(b, -(-k // 16) * 16)):
+            raise AssertionError(f"matmul_transpose: B^T of ({k}, {n}) differs from the plain "
+                                 f"version's")
     return rows
 
 
@@ -443,46 +595,78 @@ def flash_checks(torch, dev, gen) -> dict:
     return row
 
 
+SSM_SHAPE = (LM_BATCH, 1024, 112, 64, 64)  # zamba2-7b's (B, S padded to the chunk, H, P, N)
+
+
+def ssm_inputs(torch, dev, gen, dtype, steps=SSM_SHAPE[1], shift=0.0):
+    """u (B, steps, H, P) and head-shared b/c (B, steps, N) ~ N(0, 0.25) in
+    ``dtype``; a_log (B, steps, H) fp32 = -softplus(N(shift, 1))."""
+    import torch.nn.functional as F
+
+    bsz, _, h, p, n = SSM_SHAPE
+    a = -F.softplus(torch.randn((bsz, steps, h), generator=gen, device=dev) + shift)
+    u = (torch.randn((bsz, steps, h, p), generator=gen, device=dev) * 0.5).to(dtype)
+    b, c = ((torch.randn((bsz, steps, n), generator=gen, device=dev) * 0.5).to(dtype)
+            for _ in range(2))
+    return u, a, b, c
+
+
+def ssm_plain(scan, *args):
+    """A plain scan of kernels.ref on the model layout's (u, a_log, b, c)."""
+    from repro_torch.kernels import _util
+
+    return _util.unflatten_heads(scan(*_util.flatten_ssm(*args[:4]), *args[4:]), args[0].shape[0])
+
+
+def ssm_bf16_case(torch, dev, gen, chunk=256) -> tuple:
+    """The bf16 scan at zamba2-7b's shape and the init's decay: the inputs,
+    the kernel's y, and the plain version's y in bf16 and in fp32 (on the
+    same bf16 inputs)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+    u, a, b, c = ssm_inputs(torch, dev, gen, torch.bfloat16)
+    got = ssm_scan_cuda(u, a, b, c, chunk=chunk)
+    want = ssm_plain(ref.ssm_scan_chunked_ref, u, a, b, c, chunk)
+    want32 = ssm_plain(ref.ssm_scan_chunked_ref, u.float(), a, b.float(), c.float(), chunk)
+    return (u, a, b, c), got, want, want32
+
+
 def ssm_checks(torch, dev, gen) -> dict:
     """ssm_scan at zamba2-7b's main-path shape: u (4, 1024, 112, 64) (S 1000
     padded to the chunk), a_log (4, 1024, 112) f32 at the init's decay
     (-softplus of a unit normal, ~0.8 a step), head-shared B/C (4, 1024, 64),
-    chunk 256; bf16 (rtol/atol 2e-2: one rounding of y) and fp32 (1e-4: sum
-    order) against the chunked plain version, fp32 again at a slow decay
-    (-softplus(N(-5, 1)), ~0.007 a step, where the state carried across the
-    4 chunks and the key tiles far below the diagonal decide y; at the init's
-    decay they add ~0), and fp32 at S 256 against the sequential recurrence.
-    Tolerances are relative to max |y|."""
-    import torch.nn.functional as F
-
+    chunk 256; bf16 (rtol/atol 2e-2: one rounding of y, and each row's
+    ||err|| / ||want|| within SSM_ROW_RTOL of the fp32 plain output) and fp32
+    (1e-4: sum order) against the chunked plain version, fp32 again at a slow
+    decay (-softplus(N(-5, 1)), ~0.007 a step, where the state carried across
+    the 4 chunks and the key tiles far below the diagonal decide y; at the
+    init's decay they add ~0), at the same slow decay with chunk 512 (the
+    autotuner's pick), and fp32 at S 256 against the sequential recurrence.
+    Tolerances but the row check's are relative to max |y|."""
     from repro_torch.kernels import _util, ref
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
-    bsz, s, h, p, n, chunk = LM_BATCH, 1024, 112, 64, 64, 256
-
-    def inputs(dtype, steps=s, shift=0.0):
-        a = -F.softplus(torch.randn((bsz, steps, h), generator=gen, device=dev) + shift)
-        u = (torch.randn((bsz, steps, h, p), generator=gen, device=dev) * 0.5).to(dtype)
-        b, c = ((torch.randn((bsz, steps, n), generator=gen, device=dev) * 0.5).to(dtype)
-                for _ in range(2))
-        return u, a, b, c
-
-    def plain(scan, *args):
-        return _util.unflatten_heads(scan(*_util.flatten_ssm(*args[:4]), *args[4:]), bsz)
-
-    ins = inputs(torch.float32)
+    bsz, s, h, p, n = SSM_SHAPE
+    chunk = 256
+    ins = ssm_inputs(torch, dev, gen, torch.float32)
     err32 = check_close("ssm_scan fp32", ssm_scan_cuda(*ins, chunk=chunk),
-                        plain(ref.ssm_scan_chunked_ref, *ins, chunk), 1e-4, 1e-4)
-    ins = inputs(torch.float32, shift=-5.0)
+                        ssm_plain(ref.ssm_scan_chunked_ref, *ins, chunk), 1e-4, 1e-4)
+    ins = ssm_inputs(torch, dev, gen, torch.float32, shift=-5.0)
     err32_slow = check_close("ssm_scan fp32 at a slow decay", ssm_scan_cuda(*ins, chunk=chunk),
-                             plain(ref.ssm_scan_chunked_ref, *ins, chunk), 1e-4, 1e-4)
-    ins = inputs(torch.float32, 256)
+                             ssm_plain(ref.ssm_scan_chunked_ref, *ins, chunk), 1e-4, 1e-4)
+    err32_512 = check_close("ssm_scan fp32 at a slow decay, chunk 512",
+                            ssm_scan_cuda(*ins, chunk=512),
+                            ssm_plain(ref.ssm_scan_chunked_ref, *ins, 512), 1e-4, 1e-4)
+    ins = ssm_inputs(torch, dev, gen, torch.float32, 256)
     err_seq = check_close("ssm_scan fp32 S 256 vs the sequential recurrence",
-                          ssm_scan_cuda(*ins, chunk=chunk), plain(ref.ssm_scan_ref, *ins),
+                          ssm_scan_cuda(*ins, chunk=chunk), ssm_plain(ref.ssm_scan_ref, *ins),
                           1e-4, 1e-4)
-    u, a, b, c = inputs(torch.bfloat16)
-    err = check_close("ssm_scan bf16", ssm_scan_cuda(u, a, b, c, chunk=chunk).float(),
-                      plain(ref.ssm_scan_chunked_ref, u, a, b, c, chunk).float(), 2e-2, 2e-2)
+    (u, a, b, c), got, want, want32 = ssm_bf16_case(torch, dev, gen, chunk)
+    err = check_close("ssm_scan bf16", got.float(), want.float(), 2e-2, 2e-2)
+    row_err = check_rows("ssm_scan bf16", got, want32, SSM_ROW_RTOL)
+    row_rounding = row_rel_err(want32.bfloat16(), want32)
+    del got, want, want32
     flat = _util.flatten_ssm(u, a, b, c)  # the plain version's own layout, made untimed
     nbytes = 2 * u.numel() * u.element_size() + a.numel() * 4 + 2 * b.numel() * b.element_size()
     causal = chunk * (chunk + 1) // 2  # (t, s) pairs with s <= t in a chunk
@@ -491,11 +675,15 @@ def ssm_checks(torch, dev, gen) -> dict:
     return {
         "shape": "u (4, 1024, 112, 64) bf16, a_log (4, 1024, 112) f32, b/c (4, 1024, 64) bf16, "
                  "chunk 256",
-        "tolerance": "bf16 rtol 2e-2, atol 2e-2; fp32 1e-4 (also at a slow decay, and at S 256 "
-                     "against the sequential recurrence); relative to max |y|",
-        "max_abs_err": err, "max_abs_err_fp32": err32, "max_abs_err_fp32_slow_decay": err32_slow,
-        "max_abs_err_fp32_sequential": err_seq,
+        "tolerance": "bf16 rtol 2e-2, atol 2e-2 and each row's ||err|| / ||want|| within 5e-3 "
+                     "of the fp32 plain output; fp32 1e-4 (also at a slow decay, there at chunk "
+                     "512 too, and at S 256 against the sequential recurrence); but the row "
+                     "check, relative to max |y|",
+        "max_abs_err": err, "row_rel_err": row_err, "row_rel_err_rounding": row_rounding,
+        "max_abs_err_fp32": err32, "max_abs_err_fp32_slow_decay": err32_slow,
+        "max_abs_err_fp32_chunk512": err32_512, "max_abs_err_fp32_sequential": err_seq,
         "ms": time_ms(torch, lambda: ssm_scan_cuda(u, a, b, c, chunk=chunk), 10),
+        "ms_chunk512": time_ms(torch, lambda: ssm_scan_cuda(u, a, b, c, chunk=512), 10),
         "plain_ms": time_ms(torch, lambda: ref.ssm_scan_chunked_ref(*flat, chunk), 3),
         "library_ms": None,  # no single PyTorch call computes this scan
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -503,8 +691,42 @@ def ssm_checks(torch, dev, gen) -> dict:
     }
 
 
+def op_latency_checks(torch, dev) -> dict:
+    """op_latency: each op's chain of 8192 steps on 128 lanes against the same
+    chain as PyTorch ops on the card (equal for the arithmetic ops, fma as one
+    rounding; rtol = atol = 1e-6 for rsqrt, exp, tanh and log); the fma chain
+    timed as one launch beside its eager chain (8192 launches)."""
+    from repro_torch.kernels import op_latency as ops
+
+    chain, width = 8192, 128
+    errs = {}
+    for name, (kind, *_consts) in ops.OPS.items():
+        x0 = ops.chain_input(kind, width, dev)
+        got, want = ops.op_chain(name, x0, chain), ops.op_chain_ref(name, x0, chain)
+        if name.split(".")[0] in ("rsqrt", "exp", "tanh", "log"):
+            errs[name] = check_close(f"op_latency {name}", got, want, 1e-6, 1e-6)
+        elif not torch.equal(got, want):
+            raise AssertionError(f"op_latency {name}: the chain differs from the PyTorch ops'")
+        else:
+            errs[name] = 0.0
+    x0 = ops.chain_input("f32", width, dev)
+    return {
+        "shape": f"fma.f32 chain of {chain} on {width} lanes", "max_abs_err": max(errs.values()),
+        "tolerance": "equal for move/add/mul/fma/max and the s32 ops; rsqrt, exp, tanh, log "
+                     "rtol = atol = 1e-6",
+        "ms": time_ms(torch, lambda: ops.op_chain("fma.f32", x0, chain), 20),
+        "plain_ms": time_ms(torch, lambda: ops.op_chain_ref("fma.f32", x0, chain), 1, warmup=1),
+        "library_ms": None,  # no PyTorch call runs a dependent chain
+        # the contract's floor: chain x width FMAs at the FP32 pipes' rate and
+        # the lanes in and out; the chain's latency is what the probe measures
+        "bound_ms": max(2 * chain * width / FP32_FLOPS, 2 * width * 4 / HBM_BPS) * 1e3,
+        "bound_by": "operations",
+    }
+
+
 def main_path(torch, dev) -> tuple:
-    """Phase 4: ``bench run dissect --full`` through the CLI function."""
+    """Phase 4: ``bench run dissect --full`` through the CLI function.  Returns
+    the launch counts, the seconds and the op-latency table (ns per op)."""
     from repro_torch import hw
     from repro_torch.bench import cli
     from repro_torch.bench.suites import dissect as dissect_suite
@@ -533,11 +755,11 @@ def main_path(torch, dev) -> tuple:
             result = json.load(f)
     print(f"dissect --full: {seconds:.1f} s; launches {counts}", flush=True)
     (rep,) = reports
-    for probe in ("pointer_chase", "stream_bandwidth", "matmul_throughput"):
+    for probe in ("pointer_chase", "stream_bandwidth", "matmul_throughput", "op_latency"):
         backend = rep.probe_results[probe]["meta"]["backend"]
         if backend != "cuda":
             raise AssertionError(f"{probe} ran on backend {backend!r}, not the cuda kernels")
-    for k in ("pchase", "stream_reduce", "matmul"):
+    for k in ("pchase", "stream_reduce", "matmul", "op_latency"):
         if counts.get(k, 0) <= 0:
             raise AssertionError(f"{k} kernel was not launched on the main path")
     if result["env"]["device_kind"] != torch.cuda.get_device_name(dev):
@@ -559,15 +781,74 @@ def main_path(torch, dev) -> tuple:
     mm = rep.probe_results["matmul_throughput"]
     print("matmul GFLOP/s: " + ", ".join(f"{x}:{y:.1f}" for x, y in zip(mm["x"], mm["y"])))
     ops = rep.probe_results["op_latency"]
-    print("op_latency ns/op (eager, one launch per op): "
-          + ", ".join(f"{x}:{y:.1f}" for x, y in zip(ops["x"], ops["y"])), flush=True)
+    print(f"op_latency ns/op (one launch of the op_latency kernel a chain of "
+          f"{ops['meta']['chain']}, less the move-only chain's {ops['meta']['base_ns']} ns a "
+          f"step): " + ", ".join(f"{x}:{y}" for x, y in zip(ops["x"], ops["y"])), flush=True)
+    slow = {x: y for x, y in zip(ops["x"], ops["y"])
+            if x in ("add.f32", "mul.f32", "fma.f32") and not 0 <= y < 10}
+    if slow:
+        raise AssertionError(f"op_latency: fp32 add/mul/fma take 10 ns or more a step: {slow}")
     print(f"fitted levels (latency ns, capacity bytes): {rep.detected_levels}")
     print(f"fitted stream {fitted.main_memory_Bps / 1e9} GB/s, "
           f"fp32 {fitted.peak('float32') / 1e9} GFLOP/s", flush=True)
     cmp = hw.compare("measured-host", "h100")
     print("compare(measured-host, h100): " + json.dumps(
         {k: cmp[k] for k in ("peak_ratio", "main_memory_Bps_ratio", "levels")}), flush=True)
-    return counts, seconds
+    return counts, seconds, dict(zip(ops["x"], ops["y"]))
+
+
+def gemm_path(torch, dev) -> dict:
+    """Phase 4b: the Tab 4.3 ladder, ``bench run gemm_lp[cuda] gemm_lp[torch]
+    gemm[cuda] --full`` through the CLI function, with the launch counts
+    zeroed before and read after.  Every record of the reference's full grid
+    must be there (no error, no skipped point), every matmul instance must
+    have launched, and the measured ladder at the top size is printed beside
+    the H100 datasheet's."""
+    from repro_torch.bench import cli
+    from repro_torch.kernels import _util
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gemm.json")
+        t0 = time.perf_counter()
+        _util.reset_launch_counts()
+        rc = cli.main(["run", "gemm_lp[cuda]", "gemm_lp[torch]", "gemm[cuda]", "--full",
+                       "--out", out])
+        counts = _util.launch_counts()
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"bench run gemm_lp / gemm --full exited {rc}")
+        with open(out) as f:
+            result = json.load(f)
+    print(f"gemm_lp[cuda], gemm_lp[torch], gemm[cuda] --full: {seconds:.1f} s; launches {counts}",
+          flush=True)
+    if result["errors"] or result["env"]["device_kind"] != torch.cuda.get_device_name(dev):
+        raise AssertionError(f"gemm suites: errors {result['errors']}, env {result['env']}")
+    recs = {r["name"]: r["value"] for r in result["records"]}
+    dtypes = ("float32", "bfloat16", "float16", "int8", "float8_e4m3fn")
+    sizes = (256, 512, 1024)
+    want = {f"gemm_lp_{dt}:{n}[{be}]" for dt in dtypes for n in sizes for be in ("cuda", "torch")}
+    want |= {f"gemm_dispatch_float32:{n}[cuda]" for n in sizes}
+    missing = want - set(recs)
+    skipped = [k for k in recs if "skipped" in k]
+    if missing or skipped or not all(math.isfinite(v) and v > 0 for v in recs.values()):
+        raise AssertionError(f"gemm suites: missing {sorted(missing)}, skipped {skipped}")
+    for k in ("matmul", *MATMUL_LP, "matmul_transpose"):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"{k} kernel was not launched by the gemm suites")
+    top = max(sizes)
+    ladder = {}
+    for hi, lo, sheet in (("float16", "float32", BF16_FLOPS / FP32_FLOPS),
+                          ("int8", "float16", FP8_FLOPS / BF16_FLOPS),
+                          ("float8_e4m3fn", "bfloat16", FP8_FLOPS / BF16_FLOPS)):
+        for be in ("cuda", "torch"):
+            ladder[f"{hi}/{lo}[{be}]"] = (recs[f"gemm_lp_{hi}:{top}[{be}]"]
+                                          / recs[f"gemm_lp_{lo}:{top}[{be}]"])
+        ladder[f"{hi}/{lo}[datasheet]"] = sheet
+    print(f"gemm_lp measured ladder at n={top}: {json.dumps(ladder)}", flush=True)
+    print("gemm_lp GFLOP/s: " + json.dumps(
+        {k: v for k, v in recs.items() if k.startswith(("gemm_lp_", "gemm_dispatch_"))
+         and ":" in k}), flush=True)
+    return counts
 
 
 def axpy_path(torch, dev) -> tuple:
@@ -774,11 +1055,46 @@ def zamba_path(torch, dev) -> dict:
         out["tokens"] = call("decode", decode)
         return out, counts
 
+    def autotuned():
+        """The forward and the loss under kernel_policy(autotune=True), at the
+        chunk the autotuner picks for the kernel's operands on the H100.  The
+        model hands the op cfg.ssm_chunk explicitly, and an explicit kwarg wins
+        over autotune in both packages, so the config carries the pick; a spy
+        on the kernel's wrapper records the chunk each launch ran at."""
+        from repro_torch.core.autotune import choose_ssm_chunk, dtype_name
+        from repro_torch.kernels import ssm_scan as ssd
+        from repro_torch.kernels.api import kernel_policy
+
+        seen, kernel = [], ssd.ssm_scan_cuda
+
+        def spy(u, a_log, b, c, *, chunk):
+            seen.append((u.dtype, chunk))
+            return kernel(u, a_log, b, c, chunk=chunk)
+
+        ssd.ssm_scan_cuda = spy
+        try:
+            mamba.zamba_forward(params, prompts[:1, :8], cfg)  # the kernel's operand dtype
+            chunk = choose_ssm_chunk(LM_PROMPT, cfg.ssm_head_dim, cfg.ssm_state,
+                                     dtype_name(seen[0][0]), hw="nvidia-h100-sxm")
+            seen.clear()
+            acfg = cfg.replace(ssm_chunk=chunk)
+            with kernel_policy(autotune=True):
+                _util.reset_launch_counts()
+                logits, seconds = timed(lambda: mamba.zamba_forward(params, prompts, acfg))
+                launches = _util.launch_counts()
+                loss = float(build_model(acfg, device=dev).loss_fn(params, batch))
+        finally:
+            ssd.ssm_scan_cuda = kernel
+        chunks = sorted({c for _, c in seen})
+        return {"chunk": chunk, "kernel_chunks": chunks, "forward_s": seconds,
+                "launches": launches, "loss": loss, "last": logits[:, -1].float()}
+
     with torch.inference_mode():
         # warm-up: cuBLAS handles and the kernels' shared-memory attributes
         model.loss_fn(params, {"tokens": seq[:1, :32], "targets": seq[:1, 1:33]})
         run_out, counts = run(model, cfg)
         plain, plain_counts = run(plain_model, plain_cfg)
+        auto = autotuned()
     want = {"loss_fn": {"ssm_scan": cfg.n_layers, "flash_attention": n_attn},
             "forward": {"ssm_scan": cfg.n_layers, "flash_attention": n_attn},
             "prefill": {"flash_attention": n_attn}, "decode": {}}
@@ -822,6 +1138,18 @@ def zamba_path(torch, dev) -> dict:
     if agree["loss_vs_plain"] > LOSS_RTOL:
         raise AssertionError(f"zamba: loss differs from the plain path's by "
                              f"{agree['loss_vs_plain']} relative, over {LOSS_RTOL}")
+    auto_agree = {"loss_vs_chunk256": abs(auto["loss"] - run_out["loss"]) / abs(run_out["loss"]),
+                  "last_logits_vs_chunk256": rel(auto["last"], run_out["last"])}
+    print("zamba autotuned: " + json.dumps(
+        {k: v for k, v in auto.items() if k != "last"} | auto_agree), flush=True)
+    if auto["chunk"] != 512 or auto["kernel_chunks"] != [512]:
+        raise AssertionError(f"zamba autotuned: chunk {auto['chunk']}, the kernel ran at "
+                             f"{auto['kernel_chunks']}; 512 expected")
+    if auto["launches"] != want["forward"]:
+        raise AssertionError(f"zamba autotuned: launches {auto['launches']}")
+    if auto_agree["last_logits_vs_chunk256"] > 0.1 or auto_agree["loss_vs_chunk256"] > LOSS_RTOL:
+        raise AssertionError(f"zamba autotuned: disagrees with the chunk-256 run: {auto_agree}")
+    counts["autotuned_forward"] = auto["launches"]
     total = {}
     for c in counts.values():
         add_counts(total, c)
@@ -857,7 +1185,8 @@ def main() -> int:
 
     rows = kernel_checks(torch, dev)
     torch.cuda.empty_cache()
-    counts, _ = main_path(torch, dev)
+    counts, _, rows["op_latency"]["ns_per_op"] = main_path(torch, dev)
+    add_counts(counts, gemm_path(torch, dev))
     probe_counts, sweep = axpy_path(torch, dev)
     add_counts(counts, probe_counts)
     for r in rows["axpy"]["sweep_256mib"]:
@@ -881,8 +1210,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
         entry.update({k: v for k, v in r.items()
-                      if k in ("latency_bound_ms", "tflops", "row_rel_err", "sweep_256mib")
-                      or k.endswith(("_hd112", "_bf16"))})
+                      if k in ("latency_bound_ms", "tflops", "row_rel_err", "sweep_256mib",
+                               "transpose_ms", "ns_per_op")
+                      or k.endswith(("_hd112", "_4096", "_chunk512"))})
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,13 @@ host — so the measure→model loop runs through the kernels by default.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import api
+from repro_torch.kernels import op_latency as _ops
 
 from . import pchase as pc
 from .timing import resolve_device, time_fn
@@ -126,54 +127,32 @@ def probe_block_shape_bandwidth(
 # ---------------------------------------------------------------------------
 # §4.1: dependent-issue op latency table (Table 4.1 analogue)
 # ---------------------------------------------------------------------------
-_OP_TABLE: list[tuple[str, Callable, str]] = [
-    ("add.f32", lambda x: x + 1.000001, "f32"),
-    ("mul.f32", lambda x: x * 1.000001, "f32"),
-    ("fma.f32", lambda x: x * 1.000001 + 1e-7, "f32"),
-    ("max.f32", lambda x: torch.clamp_min(x, 0.5), "f32"),
-    ("rsqrt.f32", lambda x: torch.rsqrt(torch.abs(x) + 1.0), "f32"),
-    ("exp.f32", lambda x: torch.exp(x * 1e-8), "f32"),
-    ("tanh.f32", lambda x: torch.tanh(x * 0.999), "f32"),
-    ("log.f32", lambda x: torch.log(torch.abs(x) + 1.0), "f32"),
-    ("add.s32", lambda x: x + 1, "s32"),
-    ("mul.s32", lambda x: x * 1, "s32"),
-    ("shift.s32", lambda x: (x << 1) >> 1, "s32"),
-]
-
-
 def probe_op_latency(chain: int = 4096, width: int = 128, reps: int = 5,
                      device: str = "cuda") -> ProbeResult:
     """Dependent-chain latency per op (ns): a ``chain``-long loop where each
     iteration consumes the previous result (§4.1), with the loop overhead
     subtracted via a move-only baseline chain.
 
-    The reference jits the chain into one device loop.  Here it runs eagerly,
-    one PyTorch op per iteration: on the card each op is a kernel launch, so
-    the numbers are per-op launch cost, not ALU latency.
+    The ops are the reference's ``_OP_TABLE`` rows with its constants
+    (:data:`repro_torch.kernels.op_latency.OPS`).  On the card each chain is
+    one launch of the ``op_latency`` kernel, which runs it in registers, timed
+    with CUDA events (the minimum over ``reps``); the move-only launch takes
+    the launch and the loop away.  On the CPU the chain runs as eager PyTorch
+    ops, one op a step: the kernel's plain version.
     """
     dev = resolve_device(device)
-    names, lats = [], []
 
-    def run_chain(op, kind):
-        def fn(x0):
-            x = x0
-            for _ in range(chain):
-                x = op(x)
-            return x
-
-        if kind == "s32":
-            x0 = torch.arange(width, dtype=torch.int32, device=dev)
-        else:
-            x0 = torch.linspace(0.5, 1.5, width, dtype=torch.float32, device=dev)
-        t = time_fn(fn, x0, warmup=2, reps=reps)
+    def run_chain(name):
+        x0 = _ops.chain_input(_ops.OPS[name][0], width, dev)
+        t = time_fn(lambda x: _ops.op_chain(name, x, chain), x0, warmup=2, reps=reps)
         return t.min_s / chain * 1e9
 
-    base = run_chain(lambda x: x, "f32")  # loop overhead baseline
-    for name, op, kind in _OP_TABLE:
-        names.append(name)
-        lats.append(max(run_chain(op, kind) - base, 0.0))
+    base = run_chain("move")  # launch and loop overhead baseline
+    names = tuple(n for n in _ops.OPS if n != "move")
+    lats = tuple(max(run_chain(n) - base, 0.0) for n in names)
     return ProbeResult(
-        "op_latency", tuple(names), tuple(lats), "ns/op", {"chain": chain, "base_ns": base}
+        "op_latency", names, lats, "ns/op",
+        {"chain": chain, "base_ns": base, "backend": "cuda" if dev.type == "cuda" else "torch"},
     )
 
 
@@ -226,8 +205,9 @@ def probe_matmul_throughput(
             a = torch.ones((n, n), dtype=tdt, device=dev)
             b = torch.ones((n, n), dtype=tdt, device=dev)
             if tdt == torch.int8:
-                # int8 has no kernel yet (int32-accumulating library GEMM
-                # only) — tagged so a backend comparison can't mistake these
+                # int8 goes to the library's int32-accumulating GEMM, as the
+                # reference sends it to XLA (its kernel runs in the gemm_lp
+                # suite) — tagged so a backend comparison can't mistake these
                 # rows for the kernel path
                 fn = torch._int_mm
                 int8_rows.append(f"{dt}:{n}")

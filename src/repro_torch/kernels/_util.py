@@ -29,7 +29,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 #: element-type codes shared with csrc/common.cuh::ReproDtype
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3,
+               torch.int32: 4, torch.float8_e4m3fn: 5}
+#: the float types of every kernel that computes in floats
+FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 _LIB = None
 _LAUNCHES: dict = {}

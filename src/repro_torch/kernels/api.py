@@ -14,14 +14,21 @@ When neither the call nor the policy names a backend, the tensors decide: a
 CUDA tensor dispatches to ``"cuda"``, a CPU tensor to ``"torch"``.  Asking for
 ``"cuda"`` with CPU tensors raises.
 
-A context-local :func:`kernel_policy` scopes the backend and tile overrides::
+A context-local :func:`kernel_policy` scopes the backend, tile overrides and
+autotuning::
 
-    with kernel_policy(backend="torch", tiles={"matmul": {"bm": 64}}):
-        y = api.matmul(a, b)
+    with kernel_policy(backend="cuda", autotune=True):
+        y = api.matmul(a, b)          # tiles from core.autotune, cached
 
-Tile kwargs resolve as: explicit kwarg > ``policy.tiles[op]`` > the
-implementation's defaults.  Autotuned tiles and the numerics guard wait for
-the port of ``core/autotune.py`` and ``kernels/guard.py``.
+Tile kwargs resolve as the reference's: explicit kwarg > ``policy.tiles[op]``
+> autotune (when the policy enables it; ``choose_matmul_tiles``,
+``choose_attention_chunk``, ``choose_ssm_chunk``, memoized in the
+:class:`repro_torch.core.tuning.TuningCache` keyed on ``(op, shapes, dtype,
+backend)``) > the implementation's defaults.  The autotuners cost tiles for
+the H100 (``hw="nvidia-h100-sxm"``) when the tensors lie on the card, and for
+the reference's default part (TPU v5e) when they lie on the CPU, so a CPU
+parity test resolves the reference's tiles for the same arguments.  The
+numerics guard waits for the port of ``kernels/guard.py``.
 """
 from __future__ import annotations
 
@@ -33,6 +40,14 @@ from functools import partial
 from typing import Callable, Optional
 
 import torch
+
+from repro_torch.core import tuning
+from repro_torch.core.autotune import (
+    choose_attention_chunk,
+    choose_matmul_tiles,
+    choose_ssm_chunk,
+    dtype_name,
+)
 
 from . import axpy as _axpy
 from . import flash_attention as _fa
@@ -66,12 +81,14 @@ def _args_device(args) -> torch.device:
 class KernelPolicy:
     """Context-local kernel dispatch settings.
 
-    ``backend`` of None defers to :func:`default_backend`; ``tiles`` maps op
-    name -> tile-kwarg overrides (e.g. ``{"matmul": {"bm": 256}}``) and is
-    merged across nested policies.
+    ``backend`` of None defers to :func:`default_backend`; ``autotune``
+    lets :mod:`repro_torch.core.autotune` pick the tile kwargs nothing else
+    pins; ``tiles`` maps op name -> tile-kwarg overrides (e.g. ``{"matmul":
+    {"bm": 256}}``) and is merged across nested policies.
     """
 
     backend: Optional[str] = None
+    autotune: bool = False
     tiles: dict = field(default_factory=dict)
 
 
@@ -87,8 +104,6 @@ def kernel_policy(backend: Optional[str] = None, autotune: Optional[bool] = None
                   tiles: Optional[dict] = None, guard: Optional[str] = None):
     """Scoped policy override; unspecified fields inherit from the enclosing
     policy, and the previous policy is restored on exit (exception-safe)."""
-    if autotune:
-        raise NotImplementedError("autotune=True waits for the port of core/autotune.py")
     if guard not in (None, "off"):
         raise NotImplementedError(f"guard={guard!r} waits for the port of kernels/guard.py")
     if backend is not None and backend not in BACKENDS:
@@ -108,7 +123,9 @@ def kernel_policy(backend: Optional[str] = None, autotune: Optional[bool] = None
             )
         merged_tiles[op_name] = {**merged_tiles.get(op_name, {}), **ov}
     pol = KernelPolicy(
-        backend=outer.backend if backend is None else backend, tiles=merged_tiles
+        backend=outer.backend if backend is None else backend,
+        autotune=outer.autotune if autotune is None else autotune,
+        tiles=merged_tiles,
     )
     token = _POLICY.set(pol)
     try:
@@ -130,13 +147,16 @@ class KernelOp:
 
     Calling the op dispatches through the current :class:`KernelPolicy`;
     ``backend=`` overrides the policy for a single call.  Tile kwargs are
-    resolved as: explicit kwarg > policy.tiles[op] > the implementation's
-    defaults, and reach only the ``cuda`` backend.
+    resolved as: explicit kwarg > policy.tiles[op] > autotune (when the
+    policy enables it) > the implementation's defaults, and reach only the
+    ``cuda`` backend.
     """
 
-    def __init__(self, name: str, tile_args: tuple = (), doc: str = ""):
+    def __init__(self, name: str, tile_args: tuple = (),
+                 autotuner: Optional[Callable] = None, doc: str = ""):
         self.name = name
         self.tile_args = tuple(tile_args)
+        self.autotuner = autotuner  # (args tuple) -> {tile kwarg: value}
         self.__doc__ = doc
         self._impls: dict = {}
         self._accepts: dict = {}  # backend -> frozenset of kwarg names
@@ -172,11 +192,25 @@ class KernelOp:
             ) from None
 
     # -- dispatch -----------------------------------------------------------
-    def _resolve_tiles(self, pol: KernelPolicy, kwargs) -> dict:
-        out = dict(kwargs)
+    def resolve_tiles(self, args, kwargs=None, backend: str = "cuda") -> dict:
+        """``kwargs`` with the tile kwargs the current policy adds for these
+        ``args``: explicit kwarg > policy.tiles[op] > autotune (cached under
+        ``(op, shapes, dtype, backend)``) > left to the implementation."""
+        pol = current_policy()
+        out = dict(kwargs or {})
         for k, v in pol.tiles.get(self.name, {}).items():
             if k in self.tile_args:
                 out.setdefault(k, v)
+        if pol.autotune and self.autotuner is not None:
+            if any(t not in out for t in self.tile_args):
+                cache = tuning.get_cache()
+                key = tuning.make_key(self.name, args, backend)
+                tuned = cache.lookup(key)
+                if tuned is None:
+                    tuned = self.autotuner(args)
+                    cache.store(key, tuned)
+                for t, v in tuned.items():
+                    out.setdefault(t, v)
         return out
 
     def bound(self, *args, backend: Optional[str] = None, **kwargs) -> Callable:
@@ -184,7 +218,6 @@ class KernelOp:
         ``args`` once and return the impl partially applied with the final
         kwargs — timing loops call the result directly, keeping Python
         dispatch out of the measured path."""
-        pol = current_policy()
         device = _args_device(args)
         be = resolve_backend(backend, device)
         if be not in BACKENDS:
@@ -204,7 +237,7 @@ class KernelOp:
                 f"accepted across backends: {sorted(self._all_accepts)}"
             )
         if be == "cuda":
-            kwargs = self._resolve_tiles(pol, kwargs)
+            kwargs = self.resolve_tiles(args, kwargs, be)
         accepts = self._accepts[be]
         kwargs = {k: v for k, v in kwargs.items() if k in accepts}
         return partial(impl, **kwargs)
@@ -226,13 +259,13 @@ def _register(op: KernelOp) -> KernelOp:
     return op
 
 
-def kernel_op(name: str, *, tile_args: tuple = ()):
+def kernel_op(name: str, *, tile_args: tuple = (), autotuner: Optional[Callable] = None):
     """Register the decorated function as op ``name``'s ``cuda`` implementation
     and return the :class:`KernelOp` dispatcher.  Bind further backends with
     ``@<op>.defbackend("torch")``."""
 
     def deco(cuda_fn: Callable) -> KernelOp:
-        op = KernelOp(name, tile_args, doc=(cuda_fn.__doc__ or ""))
+        op = KernelOp(name, tile_args, autotuner, doc=(cuda_fn.__doc__ or ""))
         op.bind("cuda", cuda_fn)
         return _register(op)
 
@@ -250,6 +283,36 @@ def get_op(name: str) -> KernelOp:
 
 def op_names() -> list:
     return sorted(_OPS)
+
+
+# ---------------------------------------------------------------------------
+# autotuners (core.autotune glue): the H100's model for tensors on the card,
+# the reference's default part (TPU v5e) for CPU tensors
+# ---------------------------------------------------------------------------
+def _autotune_hw(t: torch.Tensor) -> dict:
+    return {"hw": "nvidia-h100-sxm"} if t.device.type == "cuda" else {}
+
+
+def _matmul_autotuner(args) -> dict:
+    a, b = args[0], args[1]
+    (m, k), n = a.shape, b.shape[1]
+    tc = choose_matmul_tiles(m, k, n, dtype_name(a.dtype), **_autotune_hw(a))
+    return {"bm": tc.bm, "bk": tc.bk, "bn": tc.bn}
+
+
+def _attention_autotuner(args) -> dict:
+    q, k = args[0], args[1]
+    _, sq, h, hd = q.shape
+    chunk = choose_attention_chunk(k.shape[1], hd, h, dtype_name(q.dtype), **_autotune_hw(q))
+    return {"bq": fit_block(128, sq), "bk": chunk}
+
+
+def _ssm_autotuner(args) -> dict:
+    u, b = args[0], args[2]
+    return {
+        "chunk": choose_ssm_chunk(u.shape[1], u.shape[-1], b.shape[-1], dtype_name(u.dtype),
+                                  **_autotune_hw(u))
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +378,7 @@ def pchase(perm, steps):
 pchase.defbackend("torch")(_pc.pchase_torch)
 
 
-@kernel_op("matmul", tile_args=("bm", "bn", "bk"))
+@kernel_op("matmul", tile_args=("bm", "bn", "bk"), autotuner=_matmul_autotuner)
 def matmul(a, b, *, bm=128, bn=128, bk=128, out_dtype=None):
     """Tiled matmul (the §4.4 GEMM-throughput probe target).  Inputs are
     zero-padded to (bm, bk, bn) multiples and the result sliced back, as in
@@ -334,7 +397,7 @@ def _matmul_torch(a, b, *, out_dtype=None):
     return ref.matmul_ref(a, b, out_dtype)
 
 
-@kernel_op("flash_attention", tile_args=("bq", "bk"))
+@kernel_op("flash_attention", tile_args=("bq", "bk"), autotuner=_attention_autotuner)
 def flash_attention(q, k, v, *, causal=True, q_offset=0, bq=128, bk=128):
     """Blockwise-softmax attention; q (B, Sq, H, hd), k/v (B, Skv, Hkv, hd)
     with H % Hkv == 0, query head ``h`` reading KV head ``h // (H // Hkv)``
@@ -371,7 +434,7 @@ def _flash_attention_torch(q, k, v, *, causal=True, q_offset=0):
     return unflatten_heads(out, q.shape[0])
 
 
-@kernel_op("ssm_scan", tile_args=("chunk",))
+@kernel_op("ssm_scan", tile_args=("chunk",), autotuner=_ssm_autotuner)
 def ssm_scan(u, a_log, b, c, *, chunk=256):
     """Chunked SSD scan; u (B,S,H,P), a_log (B,S,H), b/c (B,S,N) head-shared.
     As in the reference, the chunk is clamped to S, S is zero-padded to a

@@ -80,7 +80,7 @@ def axpy_cuda(
     """
     if x.shape != y.shape or x.dtype != y.dtype or x.ndim != 2:
         raise ValueError(f"x, y must be 2-D of one shape and dtype: {x.shape} {y.shape}")
-    if x.dtype not in _util.DTYPE_CODES:
+    if x.dtype not in _util.FLOAT_DTYPES:
         raise TypeError(f"axpy takes float32/bfloat16/float16, got {x.dtype}")
     r, c = x.shape
     if r % block_rows or c % block_cols:

@@ -6,12 +6,14 @@
 // launch the CUDA runtime refused.
 #pragma once
 
+#include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 // dtype codes shared with repro_torch/kernels/_util.py::DTYPE_CODES
-enum ReproDtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
+enum ReproDtype { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3, kI32 = 4, kF8E4M3 = 5 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -24,6 +26,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
+}
+// The reference's (XLA's) float -> integer casts: truncate toward zero, then
+// saturate; NaN gives 0 (cvt.rzi saturates to the int32 range and maps NaN to 0).
+template <> __device__ __forceinline__ int from_f32<int>(float v) { return __float2int_rz(v); }
+template <> __device__ __forceinline__ int8_t from_f32<int8_t>(float v) {
+  return static_cast<int8_t>(max(-128, min(127, __float2int_rz(v))));
+}
+// float -> fp8 e4m3fn as XLA rounds it: to nearest even, and NaN for every
+// value that rounds past the largest finite 448 (|v| > 464) and for inf and
+// NaN; cvt's saturating mode alone would give 448 there.
+template <> __device__ __forceinline__ __nv_fp8_e4m3 from_f32<__nv_fp8_e4m3>(float v) {
+  __nv_fp8_e4m3 r;
+  r.__x = fabsf(v) <= 464.f ? __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3)
+                            : static_cast<__nv_fp8_storage_t>(0x7F);
+  return r;
 }
 
 // Loads of data read once: the non-coherent path, not allocated in L1.

@@ -16,7 +16,7 @@
 // the output is acc / max(l, 1e-30).  The 16-bit kernel rounds p to the input
 // type for the second product, as the tensor cores take it.
 //
-// Two kernels, one per element type class:
+// Three kernels, by element type and head width:
 //
 // * bf16 / fp16 (`tma_kernel`, the model's path): tensor cores and the TMA.
 //   One block of two warpgroups (256 threads) owns 128 query rows of one
@@ -62,7 +62,11 @@
 //   4ty..4ty+3, keys tx+16j of each score tile and 4-wide column strips of
 //   acc; p goes through shared memory to the second product.
 //
-// Both kernels end each block's key loop at the last key any of its rows may
+// * any type at hd > 256 (`wide_kernel`): the same SIMT blocks, each computing
+//   one slice of 256 output columns over scores taken across the whole head
+//   width in 64-column steps; every slice recomputes the scores.
+//
+// The kernels end each block's key loop at the last key any of its rows may
 // see (kv_len, or q_offset + last row when causal): that skips every tile the
 // reference's `run` predicate skips, and the fully masked keys of the tiles it
 // runs add exactly 0 there (p = 0, the running max unchanged).  Blocks are
@@ -73,6 +77,7 @@
 #include <cstdio>
 
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -96,51 +101,6 @@ struct TmaLayout {
   static constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
   static constexpr int kBytes = 1024 + kBarOffset + 64;  // 1024: room to align the base
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Waits for the phase after `parity` to complete.  A wait that outlasts any
-// real one (a lost transaction) traps, so a fault shows as an error, not a hang.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (long long spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1LL << 26)) __trap();
-  }
-}
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap& map, int c0, int c1,
-                                            int c2, int c3, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: 8-row groups
-// 1024 bytes apart (SBO); `lbo` (bytes) is the stride between 64-column boxes
-// for an MN-major operand and unused (1) for a K-major one.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
 
 template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
 template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
@@ -323,26 +283,6 @@ tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
             pack2<T>(acc[4 * j + 2 * r] * l[r], acc[4 * j + 2 * r + 1] * l[r]);
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A 4-D map over (hd, heads, rows, batch), innermost first, with the caller's
@@ -610,6 +550,178 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int bh, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// any type, hd > 256: the FP32 pipes, head-flattened layout at its own width
+// ---------------------------------------------------------------------------
+// The same blocks as simt_kernel (64 query rows, 64-key tiles, the 16 x 16
+// thread grid), for head widths past the 256 the other kernels hold in
+// registers: the block computes a slice of 256 output columns (the grid's z
+// axis), and each key tile's scores over the whole head width, 64 columns of
+// q and k at a time through shared memory, so every slice recomputes the
+// same scores.  fp32 throughout (p is not rounded), whatever the input type.
+constexpr int kWideSlice = 256;  // output columns a block
+constexpr int kWideDC = 64;      // columns of hd a step of q.k
+
+constexpr size_t wide_smem_bytes() {
+  return (BQ * (kWideDC + PAD) + BKV * (kWideDC + PAD) + BKV * kWideSlice + BKV * PS) *
+         sizeof(float);
+}
+
+// Rows [row0, row0 + 64) x columns [c0, c0 + width) of a (rows, hd) matrix
+// into shared memory as fp32, row stride `ld`, times `mul`; zeros past `end`
+// rows and hd columns.
+template <typename T>
+__device__ __forceinline__ void load_slice(float* dst, int ld, int width, const T* src, int hd,
+                                           int row0, int end, int c0, float mul) {
+  for (int i = threadIdx.x; i < 64 * width; i += kThreads) {
+    const int r = i / width, c = i % width;
+    float x = 0.f;
+    if (row0 + r < end && c0 + c < hd)
+      x = to_f32(src[static_cast<long long>(row0 + r) * hd + c0 + c]) * mul;
+    dst[r * ld + c] = x;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            T* __restrict__ o, int sq, int skv, int hd, int kv_len, int q_offset, int causal,
+            float scale) {
+  constexpr int QS = kWideDC + PAD;
+  constexpr int NC = kWideSlice / 64;  // 4-wide column strips of acc per thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);  // [BQ][QS], scaled
+  float* Ks = Qs + BQ * QS;                    // [BKV][QS]
+  float* Vs = Ks + BKV * QS;                   // [BKV][kWideSlice]
+  float* Ps = Vs + BKV * kWideSlice;           // [BKV][PS], p transposed
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal rows first
+  const int c0 = blockIdx.z * kWideSlice;
+  const long long bh = blockIdx.y;
+  const T* qb = q + bh * sq * hd;
+  const T* kb = k + bh * skv * hd;
+  const T* vb = v + bh * skv * hd;
+  T* ob = o + bh * sq * hd;
+
+  const int q_last = min(q0 + BQ, sq) - 1;
+  const int kv_hi = causal ? min(kv_len, q_offset + q_last + 1) : kv_len;
+
+  float m[4], l[4], acc[4][4 * NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kv0 = 0; kv0 < kv_hi; kv0 += BKV) {
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < hd; d0 += kWideDC) {
+      __syncthreads();  // the last step's q, k (and the last tile's v, p) are read
+      load_slice(Qs, QS, kWideDC, qb, hd, q0, sq, d0, scale);
+      load_slice(Ks, QS, kWideDC, kb, hd, kv0, kv_hi, d0, 1.f);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kWideDC; d += 4) {
+        float qv[4][4], kv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) load4(Qs + (ty * 4 + i) * QS + d, qv[i]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) load4(Ks + (tx + 16 * j) * QS + d, kv[j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int t = 0; t < 4; ++t) s[i][j] = fmaf(qv[i][t], kv[j][t], s[i][j]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q_offset + q0 + ty * 4 + i;
+      bool valid[4];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kidx = kv0 + tx + 16 * j;
+        valid[j] = kidx < kv_len && (!causal || kidx <= qpos);
+        if (!valid[j]) s[i][j] = kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = valid[j] ? expf(s[i][j] - m_new) : 0.f;  // s now holds p
+        rs += s[i][j];
+      }
+      const float corr = expf(m[i] - m_new);
+      l[i] = l[i] * corr + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p[4] = {s[0][j], s[1][j], s[2][j], s[3][j]};
+      store4(Ps + (tx + 16 * j) * PS + ty * 4, p);
+    }
+    load_slice(Vs, kWideSlice, kWideSlice, vb, hd, kv0, kv_hi, c0, 1.f);
+    __syncthreads();
+
+#pragma unroll 2
+    for (int kk = 0; kk < BKV; ++kk) {
+      float p[4];
+      load4(Ps + kk * PS + ty * 4, p);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float vv[4];
+        load4(Vs + kk * kWideSlice + c * 64 + tx * 4, vv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) acc[i][c * 4 + t] = fmaf(p[i], vv[t], acc[i][c * 4 + t]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= sq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int col = c0 + c * 64 + tx * 4 + t;
+        if (col < hd) ob[static_cast<long long>(row) * hd + col] = from_f32<T>(acc[i][c * 4 + t] * inv);
+      }
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* o, int bh, int sq, int skv,
+                int hd, int kv_len, int q_offset, int causal, float scale, cudaStream_t s) {
+  constexpr size_t bytes = wide_smem_bytes();
+  static_assert(bytes <= 232448, "tiles do not fit one block's shared memory");
+  cudaError_t err = cudaFuncSetAttribute(wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + BQ - 1) / BQ, bh, (hd + kWideSlice - 1) / kWideSlice);
+  wide_kernel<T><<<grid, kThreads, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), sq, skv, hd, kv_len, q_offset, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // fp32, head-flattened (BH, S, hd) at hd 64, 128 or 256.
@@ -647,6 +759,24 @@ extern "C" int repro_flash_attention_tma(int dtype, const void* q, const void* k
   switch (dtype) {
     case kBF16: return launch_tma_hd<__nv_bfloat16>(a);
     case kF16: return launch_tma_hd<__half>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Any type, head-flattened (BH, S, hd) contiguous, any hd (the wrappers send
+// hd > 256 here).
+extern "C" int repro_flash_attention_wide(int dtype, const void* q, const void* k, const void* v,
+                                          void* o, int bh, int sq, int skv, int hd, int kv_len,
+                                          int q_offset, int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case kF32: return launch_wide<float>(q, k, v, o, bh, sq, skv, hd, kv_len, q_offset, causal, scale, s);
+    case kBF16:
+      return launch_wide<__nv_bfloat16>(q, k, v, o, bh, sq, skv, hd, kv_len, q_offset, causal,
+                                        scale, s);
+    case kF16:
+      return launch_wide<__half>(q, k, v, o, bh, sq, skv, hd, kv_len, q_offset, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -24,9 +24,17 @@
 // wgmma is later work (ROADMAP.md).
 //
 // Design: the TPU kernel walks the chunks as a sequential grid axis and keeps
-// h in VMEM scratch.  Here one block of 256 threads owns one (batch, head)
-// and loops over the chunks itself, with h (P x N, fp32) in shared memory.
-// The chunk's acum is a block scan into shared memory.  The (L x L) score
+// h in VMEM scratch.  Here one block of 256 threads owns one (batch, head,
+// slice of up to 128 columns of P) and loops over the chunks itself, with its
+// slice of h (fp32) in shared memory: the columns of P never mix (y[:, p] and
+// h[p, :] read only u[:, p]), so P > 128 splits over the grid.  N is summed
+// over (C.B^T, C.h) but its slabs never mix either: y is the sum over slabs
+// of 128 of N of the scan run with B, C and h cut to the slab.  So the block
+// runs the whole scan once per slab, and with more than one slab adds y into
+// an fp32 scratch the wrapper allocates, casting to u's dtype after the last.
+// The chunk's acum is a block scan in segments of 256 with a carry, into
+// shared memory, or into a global scratch when a very long chunk leaves it no
+// room.  The (L x L) score
 // matrix does not fit (256 KB at L 256), so y is computed in 64-row tiles:
 // for row tile i, C_i is staged in shared memory and the carried state's term
 // C_i h^T starts the accumulator; then each key tile j <= i (the tiles above
@@ -35,8 +43,8 @@
 // the chunk has read the old h does the state update re-stage B_j and the
 // decayed u_j, tile by tile, into per-thread sums of h.  Tiles are zero-filled
 // past the chunk's end and past P or N, so every L <= 256 and P, N <= 128
-// run the same code; K = ceil(max(P, N) / 16), rounded up to a power of two,
-// picks the template.  Thread (ty, tx) of a 16 x 16 grid owns rows
+// run the same code; K = ceil(min(max(P, N), 128) / 16), rounded up to a power
+// of two, picks the template.  Thread (ty, tx) of a 16 x 16 grid owns rows
 // 4ty..4ty+3 of a tile, keys tx + 16j of a score tile, columns tx + 16k of y,
 // and h[ty + 16a][tx + 16b].  Products run on the FP32 pipes.
 #include "common.cuh"
@@ -46,7 +54,7 @@ namespace {
 constexpr int kThreads = 256;   // a 16 x 16 grid of (ty, tx)
 constexpr int TR = 64;          // rows of a query or key tile
 constexpr int WS = TR + 4;      // row stride of the transposed score tile, in floats
-constexpr int kMaxChunk = 256;  // one acum entry per thread
+constexpr int kDimTile = 128;   // columns of P a block, values of N a slab
 constexpr float kClipLo = -60.f;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -76,16 +84,20 @@ __device__ __forceinline__ void stage(float* dst, int ss, const T* src, long lon
   }
 }
 
+// Shared-memory floats of the tiles; acum's ceil(L / 64) * 64 come on top.
 template <int K>
 constexpr size_t smem_floats() {
   constexpr int W = 16 * K, NS = W + 4;
-  return W * NS + 2 * TR * NS + TR * W + TR * WS + kMaxChunk;
+  return W * NS + 2 * TR * NS + TR * W + TR * WS;
 }
 
+// acum_g: null when acum fits in shared memory, else L_r floats a block.
+// yacc: null with one slab of N, else an fp32 (B, S, H, P) scratch.
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads, K <= 4 ? 2 : 1)
 ssd_kernel(const T* __restrict__ u, const float* __restrict__ a, const T* __restrict__ b,
-           const T* __restrict__ c, T* __restrict__ y, int S, int H, int P, int N, int L) {
+           const T* __restrict__ c, T* __restrict__ y, float* __restrict__ yacc,
+           float* __restrict__ acum_g, int S, int H, int P, int N, int L) {
   constexpr int W = 16 * K;  // P and N, padded
   constexpr int NS = W + 4;  // row stride of h, C and B in shared memory
   extern __shared__ __align__(16) float smem[];
@@ -94,212 +106,260 @@ ssd_kernel(const T* __restrict__ u, const float* __restrict__ a, const T* __rest
   float* Bs = Cs + TR * NS;    // [TR][NS] B rows of the current key tile
   float* Us = Bs + TR * NS;    // [TR][W]  u rows of the current key tile
   float* Wt = Us + TR * W;     // [TR][WS] the score tile, transposed: Wt[s][t]
-  float* acum = Wt + TR * WS;  // [kMaxChunk]
+  const int ntiles = (L + TR - 1) / TR;
+  const int ptiles = (P + kDimTile - 1) / kDimTile;
+  float* acum = acum_g ? acum_g + static_cast<long long>(blockIdx.x) * ntiles * TR
+                       : Wt + TR * WS;  // [ntiles * TR]
   __shared__ float warp_tot[kThreads / 32];
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bsz = blockIdx.x / H, h = blockIdx.x % H;
+  const int bh = blockIdx.x / ptiles, p0 = (blockIdx.x % ptiles) * kDimTile;
+  const int bsz = bh / H, h = bh % H;
+  const int pw = min(kDimTile, P - p0);  // this block's columns of P
   const long long ustep = static_cast<long long>(H) * P;  // elements between steps of u and y
-  const T* ub = u + static_cast<long long>(h) * P;
-  T* yb = y + static_cast<long long>(h) * P;
-  const int ntiles = (L + TR - 1) / TR;
+  const T* ub = u + static_cast<long long>(h) * P + p0;
+  T* yb = y + static_cast<long long>(h) * P + p0;
+  float* yab = yacc ? yacc + static_cast<long long>(h) * P + p0 : nullptr;
 
-  for (int i = tid; i < W * NS; i += kThreads) Hs[i] = 0.f;
+  for (int n0 = 0; n0 < N; n0 += kDimTile) {
+    const int nw = min(kDimTile, N - n0);  // this slab's values of N
+    const bool first_slab = n0 == 0, last_slab = n0 + kDimTile >= N;
+    __syncthreads();  // the last slab's readers of h are done
+    for (int i = tid; i < W * NS; i += kThreads) Hs[i] = 0.f;
 
-  for (int t0 = 0; t0 < S; t0 += L) {
-    const long long step0 = static_cast<long long>(bsz) * S + t0;  // (bsz, t0) on the B*S axis
+    for (int t0 = 0; t0 < S; t0 += L) {
+      const long long step0 = static_cast<long long>(bsz) * S + t0;  // (bsz, t0) on the B*S axis
 
-    // 1. acum = cumsum(a) over the chunk; entries from L on hold atot
-    __syncthreads();  // the last chunk's readers of acum and warp_tot are done
-    {
-      float v = tid < L ? a[(step0 + tid) * H + h] : 0.f;
-      const int lane = tid & 31, warp = tid >> 5;
+      // 1. acum = cumsum(a) over the chunk, 256 entries at a time with the sum
+      //    so far carried; entries from L on hold atot
+      __syncthreads();  // the last chunk's readers of acum and warp_tot are done
+      {
+        const int lane = tid & 31, warp = tid >> 5;
+        float carry = 0.f;
+        for (int base = 0; base < ntiles * TR; base += kThreads) {
+          float v = base + tid < L ? a[(step0 + base + tid) * H + h] : 0.f;
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float n = __shfl_up_sync(0xffffffffu, v, o);
-        if (lane >= o) v += n;
-      }
-      if (lane == 31) warp_tot[warp] = v;
-      __syncthreads();
-      for (int w = 0; w < warp; ++w) v += warp_tot[w];
-      acum[tid] = v;
-    }
-    __syncthreads();
-    const float atot = acum[L - 1];
-
-    // 2. y, one row tile at a time
-    for (int i = 0; i < ntiles; ++i) {
-      const int r0 = i * TR;
-      __syncthreads();  // the last row tile's readers of C are done
-      stage<W>(Cs, NS, c + (step0 + r0) * N, N, min(TR, L - r0), N);
-      __syncthreads();
-
-      float acc[4][K];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int k = 0; k < K; ++k) acc[ii][k] = 0.f;
-      if (t0 > 0) {  // the carried state's term; h is zero in the first chunk
-#pragma unroll 2
-        for (int d = 0; d < W; d += 4) {
-          float4 cv[4];
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii) cv[ii] = ld4(Cs + (ty * 4 + ii) * NS + d);
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            const float4 hv = ld4(Hs + (tx + 16 * k) * NS + d);
-#pragma unroll
-            for (int ii = 0; ii < 4; ++ii) acc[ii][k] = dot4(cv[ii], hv, acc[ii][k]);
+          for (int o = 1; o < 32; o <<= 1) {
+            const float n = __shfl_up_sync(0xffffffffu, v, o);
+            if (lane >= o) v += n;
           }
-        }
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-          const float e = expf(acum[r0 + ty * 4 + ii]);
-#pragma unroll
-          for (int k = 0; k < K; ++k) acc[ii][k] *= e;
+          if (lane == 31) warp_tot[warp] = v;
+          __syncthreads();
+          for (int w = 0; w < warp; ++w) v += warp_tot[w];
+          if (base + tid < ntiles * TR) acum[base + tid] = v + carry;
+          float seg = 0.f;
+          for (int w = 0; w < kThreads / 32; ++w) seg += warp_tot[w];
+          carry += seg;
+          __syncthreads();  // warp_tot is read before the next segment writes it
         }
       }
+      __syncthreads();
+      const float atot = acum[L - 1];
 
-      for (int j = 0; j <= i; ++j) {
-        const int s0 = j * TR;
-        __syncthreads();  // the last key tile's readers of B, u and W are done
-        stage<W>(Bs, NS, b + (step0 + s0) * N, N, min(TR, L - s0), N);
-        stage<W>(Us, W, ub + (step0 + s0) * ustep, ustep, min(TR, L - s0), P);
+      // 2. y, one row tile at a time
+      for (int i = 0; i < ntiles; ++i) {
+        const int r0 = i * TR;
+        __syncthreads();  // the last row tile's readers of C are done
+        stage<W>(Cs, NS, c + (step0 + r0) * N + n0, N, min(TR, L - r0), nw);
         __syncthreads();
 
-        float sc[4][4];
+        float acc[4][K];
 #pragma unroll
         for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) sc[ii][jj] = 0.f;
+          for (int k = 0; k < K; ++k) acc[ii][k] = 0.f;
+        if (t0 > 0) {  // the carried state's term; h is zero in the first chunk
 #pragma unroll 2
-        for (int d = 0; d < W; d += 4) {
-          float4 cv[4], bv[4];
+          for (int d = 0; d < W; d += 4) {
+            float4 cv[4];
 #pragma unroll
-          for (int ii = 0; ii < 4; ++ii) cv[ii] = ld4(Cs + (ty * 4 + ii) * NS + d);
+            for (int ii = 0; ii < 4; ++ii) cv[ii] = ld4(Cs + (ty * 4 + ii) * NS + d);
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) bv[jj] = ld4(Bs + (tx + 16 * jj) * NS + d);
+            for (int k = 0; k < K; ++k) {
+              const float4 hv = ld4(Hs + (tx + 16 * k) * NS + d);
+#pragma unroll
+              for (int ii = 0; ii < 4; ++ii) acc[ii][k] = dot4(cv[ii], hv, acc[ii][k]);
+            }
+          }
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+            const float e = expf(acum[r0 + ty * 4 + ii]);
+#pragma unroll
+            for (int k = 0; k < K; ++k) acc[ii][k] *= e;
+          }
+        }
+
+        for (int j = 0; j <= i; ++j) {
+          const int s0 = j * TR;
+          __syncthreads();  // the last key tile's readers of B, u and W are done
+          stage<W>(Bs, NS, b + (step0 + s0) * N + n0, N, min(TR, L - s0), nw);
+          stage<W>(Us, W, ub + (step0 + s0) * ustep, ustep, min(TR, L - s0), pw);
+          __syncthreads();
+
+          float sc[4][4];
 #pragma unroll
           for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj) sc[ii][jj] = dot4(cv[ii], bv[jj], sc[ii][jj]);
-        }
+            for (int jj = 0; jj < 4; ++jj) sc[ii][jj] = 0.f;
+#pragma unroll 2
+          for (int d = 0; d < W; d += 4) {
+            float4 cv[4], bv[4];
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int sl = tx + 16 * jj, s = s0 + sl;
-          float w[4];
+            for (int ii = 0; ii < 4; ++ii) cv[ii] = ld4(Cs + (ty * 4 + ii) * NS + d);
 #pragma unroll
-          for (int ii = 0; ii < 4; ++ii) {
-            const int t = r0 + ty * 4 + ii;
-            w[ii] = (s <= t && t < L) ? sc[ii][jj] * clip_exp(acum[t] - acum[s]) : 0.f;
+            for (int jj = 0; jj < 4; ++jj) bv[jj] = ld4(Bs + (tx + 16 * jj) * NS + d);
+#pragma unroll
+            for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) sc[ii][jj] = dot4(cv[ii], bv[jj], sc[ii][jj]);
           }
-          *reinterpret_cast<float4*>(Wt + sl * WS + ty * 4) = make_float4(w[0], w[1], w[2], w[3]);
-        }
-        __syncthreads();
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int sl = tx + 16 * jj, s = s0 + sl;
+            float w[4];
+#pragma unroll
+            for (int ii = 0; ii < 4; ++ii) {
+              const int t = r0 + ty * 4 + ii;
+              w[ii] = (s <= t && t < L) ? sc[ii][jj] * clip_exp(acum[t] - acum[s]) : 0.f;
+            }
+            *reinterpret_cast<float4*>(Wt + sl * WS + ty * 4) = make_float4(w[0], w[1], w[2], w[3]);
+          }
+          __syncthreads();
 
 #pragma unroll 4
-        for (int sl = 0; sl < TR; ++sl) {
-          const float4 w = ld4(Wt + sl * WS + ty * 4);
+          for (int sl = 0; sl < TR; ++sl) {
+            const float4 w = ld4(Wt + sl * WS + ty * 4);
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              const float uv = Us[sl * W + tx + 16 * k];
+              acc[0][k] = fmaf(w.x, uv, acc[0][k]);
+              acc[1][k] = fmaf(w.y, uv, acc[1][k]);
+              acc[2][k] = fmaf(w.z, uv, acc[2][k]);
+              acc[3][k] = fmaf(w.w, uv, acc[3][k]);
+            }
+          }
+        }
+
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const int t = r0 + ty * 4 + ii;
+          if (t >= L) continue;
+          T* yr = yb + (step0 + t) * ustep;
+          float* yar = yab ? yab + (step0 + t) * ustep : nullptr;
 #pragma unroll
           for (int k = 0; k < K; ++k) {
-            const float uv = Us[sl * W + tx + 16 * k];
-            acc[0][k] = fmaf(w.x, uv, acc[0][k]);
-            acc[1][k] = fmaf(w.y, uv, acc[1][k]);
-            acc[2][k] = fmaf(w.z, uv, acc[2][k]);
-            acc[3][k] = fmaf(w.w, uv, acc[3][k]);
+            const int p = tx + 16 * k;
+            if (p >= pw) continue;
+            // the slabs of N: this thread wrote yar[p] in the last slab itself
+            const float v = first_slab ? acc[ii][k] : acc[ii][k] + yar[p];
+            if (last_slab) {
+              yr[p] = from_f32<T>(v);
+            } else {
+              yar[p] = v;
+            }
           }
         }
       }
 
+      // 3. h <- h exp(atot) + (u sdecay)^T B, once every row tile has read the old h
+      __syncthreads();
+      float hacc[K][K];
+      const float decay = expf(atot);
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int t = r0 + ty * 4 + ii;
-        if (t >= L) continue;
-        T* yr = yb + (step0 + t) * ustep;
+      for (int pa = 0; pa < K; ++pa)
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const int p = tx + 16 * k;
-          if (p < P) yr[p] = from_f32<T>(acc[ii][k]);
+        for (int nb = 0; nb < K; ++nb) hacc[pa][nb] = Hs[(ty + 16 * pa) * NS + tx + 16 * nb] * decay;
+      for (int j = 0; j < ntiles; ++j) {
+        const int s0 = j * TR, rows = min(TR, L - s0);
+        __syncthreads();  // the last readers of B and u are done
+        stage<W>(Bs, NS, b + (step0 + s0) * N + n0, N, rows, nw);
+        stage<W>(Us, W, ub + (step0 + s0) * ustep, ustep, rows, pw, acum + s0, atot);
+        __syncthreads();
+#pragma unroll 4
+        for (int sl = 0; sl < TR; ++sl) {
+          float uv[K], bv[K];
+#pragma unroll
+          for (int pa = 0; pa < K; ++pa) uv[pa] = Us[sl * W + ty + 16 * pa];
+#pragma unroll
+          for (int nb = 0; nb < K; ++nb) bv[nb] = Bs[sl * NS + tx + 16 * nb];
+#pragma unroll
+          for (int pa = 0; pa < K; ++pa)
+#pragma unroll
+            for (int nb = 0; nb < K; ++nb) hacc[pa][nb] = fmaf(uv[pa], bv[nb], hacc[pa][nb]);
         }
       }
+      // each thread rewrites only the entries of h it read; the next reader of h
+      // is the next chunk, after its first barrier
+#pragma unroll
+      for (int pa = 0; pa < K; ++pa)
+#pragma unroll
+        for (int nb = 0; nb < K; ++nb) Hs[(ty + 16 * pa) * NS + tx + 16 * nb] = hacc[pa][nb];
     }
-
-    // 3. h <- h exp(atot) + (u sdecay)^T B, once every row tile has read the old h
-    __syncthreads();
-    float hacc[K][K];
-    const float decay = expf(atot);
-#pragma unroll
-    for (int pa = 0; pa < K; ++pa)
-#pragma unroll
-      for (int nb = 0; nb < K; ++nb) hacc[pa][nb] = Hs[(ty + 16 * pa) * NS + tx + 16 * nb] * decay;
-    for (int j = 0; j < ntiles; ++j) {
-      const int s0 = j * TR, rows = min(TR, L - s0);
-      __syncthreads();  // the last readers of B and u are done
-      stage<W>(Bs, NS, b + (step0 + s0) * N, N, rows, N);
-      stage<W>(Us, W, ub + (step0 + s0) * ustep, ustep, rows, P, acum + s0, atot);
-      __syncthreads();
-#pragma unroll 4
-      for (int sl = 0; sl < TR; ++sl) {
-        float uv[K], bv[K];
-#pragma unroll
-        for (int pa = 0; pa < K; ++pa) uv[pa] = Us[sl * W + ty + 16 * pa];
-#pragma unroll
-        for (int nb = 0; nb < K; ++nb) bv[nb] = Bs[sl * NS + tx + 16 * nb];
-#pragma unroll
-        for (int pa = 0; pa < K; ++pa)
-#pragma unroll
-          for (int nb = 0; nb < K; ++nb) hacc[pa][nb] = fmaf(uv[pa], bv[nb], hacc[pa][nb]);
-      }
-    }
-    // each thread rewrites only the entries of h it read; the next reader of h
-    // is the next chunk, after its first barrier
-#pragma unroll
-    for (int pa = 0; pa < K; ++pa)
-#pragma unroll
-      for (int nb = 0; nb < K; ++nb) Hs[(ty + 16 * pa) * NS + tx + 16 * nb] = hacc[pa][nb];
-  }
+  }  // slabs of N
 }
 
 template <typename T, int K>
-int launch(const void* u, const void* a, const void* b, const void* c, void* y, int batch, int S,
-           int H, int P, int N, int L, cudaStream_t s) {
-  constexpr size_t bytes = smem_floats<K>() * sizeof(float);
-  static_assert(bytes + kThreads / 32 * sizeof(float) <= 232448,
-                "tiles do not fit one block's shared memory");
+int launch(const void* u, const void* a, const void* b, const void* c, void* y, void* yacc,
+           void* acum, int batch, int S, int H, int P, int N, int L, cudaStream_t s) {
+  constexpr size_t tiles = smem_floats<K>() * sizeof(float);
+  constexpr size_t limit = 232448 - kThreads / 32 * sizeof(float);
+  static_assert(tiles <= limit, "tiles do not fit one block's shared memory");
+  const size_t acum_bytes = static_cast<size_t>((L + TR - 1) / TR) * TR * sizeof(float);
+  const bool acum_shared = tiles + acum_bytes <= limit;
+  const size_t bytes = tiles + (acum_shared ? acum_bytes : 0);
+  if (!acum_shared && acum == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(ssd_kernel<T, K>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_kernel<T, K><<<batch * H, kThreads, bytes, s>>>(
+  const int ptiles = (P + kDimTile - 1) / kDimTile;
+  ssd_kernel<T, K><<<batch * H * ptiles, kThreads, bytes, s>>>(
       static_cast<const T*>(u), static_cast<const float*>(a), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y), S, H, P, N, L);
+      static_cast<const T*>(c), static_cast<T*>(y), static_cast<float*>(yacc),
+      acum_shared ? nullptr : static_cast<float*>(acum), S, H, P, N, L);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_k(const void* u, const void* a, const void* b, const void* c, void* y, int batch,
-             int S, int H, int P, int N, int L, cudaStream_t s) {
-  const int k = max((P + 15) / 16, (N + 15) / 16);
-  if (k <= 1) return launch<T, 1>(u, a, b, c, y, batch, S, H, P, N, L, s);
-  if (k <= 2) return launch<T, 2>(u, a, b, c, y, batch, S, H, P, N, L, s);
-  if (k <= 4) return launch<T, 4>(u, a, b, c, y, batch, S, H, P, N, L, s);
-  if (k <= 8) return launch<T, 8>(u, a, b, c, y, batch, S, H, P, N, L, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+int launch_k(const void* u, const void* a, const void* b, const void* c, void* y, void* yacc,
+             void* acum, int batch, int S, int H, int P, int N, int L, cudaStream_t s) {
+  const int k = (max(min(P, kDimTile), min(N, kDimTile)) + 15) / 16;
+  if (k <= 1) return launch<T, 1>(u, a, b, c, y, yacc, acum, batch, S, H, P, N, L, s);
+  if (k <= 2) return launch<T, 2>(u, a, b, c, y, yacc, acum, batch, S, H, P, N, L, s);
+  if (k <= 4) return launch<T, 4>(u, a, b, c, y, yacc, acum, batch, S, H, P, N, L, s);
+  return launch<T, 8>(u, a, b, c, y, yacc, acum, batch, S, H, P, N, L, s);
 }
 
 }  // namespace
 
+// Shared-memory room for acum (ceil(L / 64) * 64 floats) beside the tiles of
+// the template (P, N) pick: 1 when the kernel keeps acum in shared memory, 0
+// when it needs the global scratch of repro_ssm_scan's `acum` argument.
+extern "C" int repro_ssm_scan_acum_fits(int P, int N, int L) {
+  const int k = (max(min(P, kDimTile), min(N, kDimTile)) + 15) / 16;
+  const size_t tiles = (k <= 1   ? smem_floats<1>()
+                        : k <= 2 ? smem_floats<2>()
+                        : k <= 4 ? smem_floats<4>()
+                                 : smem_floats<8>()) * sizeof(float);
+  const size_t acum_bytes = static_cast<size_t>((L + TR - 1) / TR) * TR * sizeof(float);
+  return tiles + acum_bytes <= 232448 - kThreads / 32 * sizeof(float);
+}
+
+// yacc: an fp32 (B, S, H, P) scratch when N > 128, else null.  acum: a scratch
+// of B * H * ceil(P / 128) * ceil(L / 64) * 64 floats when
+// repro_ssm_scan_acum_fits is 0, else null.
 extern "C" int repro_ssm_scan(int dtype, const void* u, const void* a, const void* b,
-                              const void* c, void* y, int batch, int S, int H, int P, int N,
-                              int L, void* stream) {
-  if (L < 1 || L > kMaxChunk || S % L || P < 1 || N < 1) {
+                              const void* c, void* y, void* yacc, void* acum, int batch, int S,
+                              int H, int P, int N, int L, void* stream) {
+  if (L < 1 || S % L || P < 1 || N < 1 || (N > kDimTile && yacc == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return launch_k<float>(u, a, b, c, y, batch, S, H, P, N, L, s);
-    case kBF16: return launch_k<__nv_bfloat16>(u, a, b, c, y, batch, S, H, P, N, L, s);
-    case kF16: return launch_k<__half>(u, a, b, c, y, batch, S, H, P, N, L, s);
+    case kF32: return launch_k<float>(u, a, b, c, y, yacc, acum, batch, S, H, P, N, L, s);
+    case kBF16:
+      return launch_k<__nv_bfloat16>(u, a, b, c, y, yacc, acum, batch, S, H, P, N, L, s);
+    case kF16: return launch_k<__half>(u, a, b, c, y, yacc, acum, batch, S, H, P, N, L, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

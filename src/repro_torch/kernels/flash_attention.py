@@ -18,6 +18,9 @@ shapes sits at the tensor cores' ridge, so the card's floor is theirs.
   takes the head-flattened layout at hd 64, 128 or 256; any other width up to
   256 is zero-padded to the next of them and scaled by the true
   ``hd ** -0.5``, which gives the same function.
+* every type at hd > 256 (:func:`flash_attention_wide`): a SIMT kernel on the
+  head-flattened layout at the head's own width, each block computing a
+  slice of 256 output columns over scores taken across the whole width.
 
 The reference's ``saturation_check`` guard sentinel waits for the port of
 ``kernels/guard.py``.
@@ -39,19 +42,19 @@ TMA_STRIDE_BYTES = 16  # the TMA's unit of a global stride
 
 
 def kernel_head_dim(hd: int) -> int:
-    """The fp32 kernel's template width a head width of ``hd`` runs at."""
+    """The fp32 kernel's template width a head width of ``hd`` runs at; past
+    ``MAX_HEAD_DIM``, ``hd`` itself (the wide kernel's own width)."""
     for width in HEAD_DIMS:
         if hd <= width:
             return width
-    raise ValueError(f"flash_attention takes head_dim up to {HEAD_DIMS[-1]}, got {hd}")
+    return hd
 
 
 def tma_head_dim(hd: int, element_size: int) -> int:
     """``hd`` rounded up to a whole number of the TMA's 16-byte stride units:
-    the head width the tensor-core kernel reads.  The extra columns are zeros,
-    which add nothing to q.k and are sliced off the output."""
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention takes head_dim up to {MAX_HEAD_DIM}, got {hd}")
+    the head width the tensor-core kernel reads (up to ``MAX_HEAD_DIM``; a
+    wider head goes to the wide kernel).  The extra columns are zeros, which
+    add nothing to q.k and are sliced off the output."""
     unit = TMA_STRIDE_BYTES // element_size
     return -(-hd // unit) * unit
 
@@ -98,6 +101,11 @@ _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_float,
 )
+_WIDE_ARGTYPES = (
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_float,
+)
 _U64P = ctypes.POINTER(ctypes.c_uint64)
 _TMA_ARGTYPES = (
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -110,6 +118,33 @@ def _u64(values) -> ctypes.Array:
     return (ctypes.c_uint64 * len(values))(*values)
 
 
+def flash_attention_wide(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    q_offset: int = 0, kv_len: Optional[int] = None, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """q (BH, Sq, hd), k/v (BH, Skv, hd), the head-flattened layout at any
+    head width, float32/bfloat16/float16: the wide kernel, which the other
+    wrappers send every hd > ``MAX_HEAD_DIM``.  ``kv_len`` (default Skv)
+    masks keys from that index on; ``scale`` defaults to ``hd ** -0.5``.  On
+    CUDA tensors this launches the kernel; CPU tensors take the plain
+    version."""
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    kv_len = skv if kv_len is None else kv_len
+    scale = hd ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                                       scale=scale)
+    if q.dtype not in _util.FLOAT_DTYPES:
+        raise TypeError(f"flash_attention kernel takes float32/bfloat16/float16, got {q.dtype}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    out = torch.empty_like(q)
+    _util.launch("flash_attention", "repro_flash_attention_wide", _WIDE_ARGTYPES, q.device,
+                 _util.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), bh, sq, skv, hd, kv_len, q_offset, int(causal), scale)
+    return out
+
+
 def flash_attention_model(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     q_offset: int = 0, kv_len: Optional[int] = None, scale: Optional[float] = None,
@@ -117,7 +152,8 @@ def flash_attention_model(
     """q (B, Sq, H, hd), k/v (B, Skv, Hkv, hd) with H % Hkv == 0: the model
     layout, bf16 or fp16, read in place by the tensor-core kernel (hd is
     zero-padded to :func:`tma_head_dim` first where a row is not a whole
-    number of 16 bytes).
+    number of 16 bytes).  A head wider than ``MAX_HEAD_DIM`` goes to
+    :func:`flash_attention_wide` with the KV heads expanded.
 
     ``kv_len`` (default Skv) masks keys from that index on; ``scale``
     (default ``hd ** -0.5``) multiplies the scores.  The output is (B, Sq,
@@ -138,6 +174,11 @@ def flash_attention_model(
     if not 0 <= kv_len <= skv:
         raise ValueError(f"kv_len {kv_len} outside [0, {skv}]")
     scale = hd ** -0.5 if scale is None else scale
+    if hd > MAX_HEAD_DIM:
+        ke, ve = expand_kv_heads(k, v, h)
+        out = flash_attention_wide(*(_util.flatten_heads(t) for t in (q, ke, ve)), causal=causal,
+                                   q_offset=q_offset, kv_len=kv_len, scale=scale)
+        return _util.unflatten_heads(out, b)
     width = tma_head_dim(hd, q.element_size())
     if width != hd:
         q, k, v = (F.pad(t, (0, width - hd)) for t in (q, k, v))
@@ -176,7 +217,8 @@ def flash_attention_cuda(
     ``kernels.api`` pads them); ``kv_len``, the true key count, masks the
     padded keys.  bf16/fp16 go to :func:`flash_attention_model` as the model
     layout with B = BH and H = 1.  fp32 zero-pads a head width outside
-    ``HEAD_DIMS`` to the next one, with the true ``hd ** -0.5`` as the scale;
+    ``HEAD_DIMS`` to the next one, with the true ``hd ** -0.5`` as the scale
+    (and a head wider than the last goes to :func:`flash_attention_wide`);
     a caller that has padded hd itself passes the true ``scale``.  The output
     has q's shape and dtype.  On CUDA tensors this launches a kernel; CPU
     tensors take the plain version, on the same padded operands.
@@ -201,6 +243,9 @@ def flash_attention_cuda(
                                     q_offset=q_offset, kv_len=kv_len, scale=scale)
         return out[:, :, 0]
     width = kernel_head_dim(hd)
+    if width > MAX_HEAD_DIM:
+        return flash_attention_wide(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                                    scale=scale)
     if width != hd:
         q, k, v = (F.pad(t, (0, width - hd)) for t in (q, k, v))
     if q.device.type == "cpu":

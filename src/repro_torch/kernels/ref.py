@@ -43,9 +43,41 @@ def pchase_ref(perm, steps: int) -> int:
     return int(idx)
 
 
+FP8_E4M3_NAN_PAST = 464.0  # the midpoint of 448 and 480: past it, XLA's e4m3fn cast gives NaN
+
+
+def cast_like_xla(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.astype(dtype)`` as the reference (XLA) casts a float array, where
+    torch's ``.to`` differs: to an integer type it truncates toward zero and
+    saturates at the type's range (NaN gives 0; torch wraps), and to fp8
+    e4m3fn it rounds to nearest even and gives NaN for every value past
+    448's rounding range and for inf (torch saturates to 448)."""
+    if dtype in (torch.int8, torch.int32):
+        info = torch.iinfo(dtype)
+        x = torch.nan_to_num(x.double().trunc(), nan=0.0)
+        return x.clamp(info.min, info.max).to(dtype)
+    if dtype == torch.float8_e4m3fn:
+        y = x.to(dtype)
+        nan = torch.full_like(y, float("nan"))
+        return torch.where(x.abs() <= FP8_E4M3_NAN_PAST, y, nan)
+    return x.to(dtype)
+
+
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """a @ b accumulated in fp32 and cast to ``out_dtype`` (default a's) with
+    :func:`cast_like_xla`: the reference's ``matmul_ref`` and its kernel's
+    ``acc.astype(o_ref.dtype)``, for every input type (int8 in fp32 too, exact
+    while every partial sum stays below 2^24)."""
     out_dtype = out_dtype or a.dtype
-    return torch.matmul(a.float(), b.float()).to(out_dtype)
+    return cast_like_xla(torch.matmul(a.float(), b.float()), out_dtype)
+
+
+def transpose8_ref(b: torch.Tensor, rows: int) -> torch.Tensor:
+    """B (K, N) of a 1-byte type -> B^T (N, rows), zero past K: the 8-bit
+    matmul's transpose pass."""
+    k = b.shape[0]
+    bt = torch.nn.functional.pad(b.t().view(torch.uint8), (0, rows - k))
+    return bt.view(b.dtype).contiguous()
 
 
 def flash_attention_ref(

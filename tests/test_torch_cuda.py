@@ -371,3 +371,175 @@ def test_hybrid_forward_runs_both_kernels(dev):
     assert _util.launch_counts() == {"flash_attention": 2}
     want, _ = plain.prefill(params, {"tokens": toks[:, :-1]}, 48)
     torch.testing.assert_close(last, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core matmul (bf16, fp16, int8, fp8 e4m3), the op-latency chains,
+# and ssm_scan / flash_attention past their former shape limits
+# ---------------------------------------------------------------------------
+def _operands(dev, dtype, m, k, n, seed):
+    if dtype == torch.int8:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int32)
+                .to(torch.int8) for shape in ((m, k), (k, n))]
+    scale = 2.0 if dtype == torch.float8_e4m3fn else 1.0
+    return [_rand(shape, dev, torch.float32, seed + i, scale).to(dtype)
+            for i, shape in enumerate(((m, k), (k, n)))]
+
+
+def _row_rel_err(got, want):
+    g, w = got.double(), want.double()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-300)).max())
+
+
+# each row's ||err|| / ||exact||: fp32 outputs carry the sum order (fp8: the
+# tensor cores' ~14-bit accumulation within each 128 of K, ~1e-4);
+# 16-bit outputs their own rounding (2^-9 bf16, 2^-12 fp16, bounds on a row's)
+_ROW_LIMIT = {(torch.bfloat16, torch.float32): 1e-5, (torch.float16, torch.float32): 1e-5,
+              (torch.float8_e4m3fn, torch.float32): 5e-4, "bfloat16": 4e-3, "float16": 5e-4}
+
+
+@pytest.mark.parametrize("mkn", [(300, 200, 100), (129, 40, 72), (256, 1000, 192),
+                                 (1024, 1024, 1024)])
+@pytest.mark.parametrize("dtype,out", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float16, torch.float16), (torch.float16, torch.float32),
+    (torch.int8, torch.int32), (torch.int8, torch.int8), (torch.int8, torch.float32),
+    (torch.float8_e4m3fn, torch.float32), (torch.float8_e4m3fn, torch.bfloat16),
+    (torch.float8_e4m3fn, torch.float8_e4m3fn),
+])
+def test_matmul_tensor_core_kernel(dev, mkn, dtype, out):
+    """Each tensor-core instance against the plain version (integers exact,
+    saturation included) and the float64 product (each row's relative error);
+    the 8-bit ones launch the transpose first.  The shapes end inside the
+    128-wide tiles, and K 200 / 40 / 1000 inside a 64- or 128-deep one."""
+    m, k, n = mkn
+    a, b = _operands(dev, dtype, m, k, n, seed=m + k + n)
+    counts = dict(_util.launch_counts())
+    got = matmul_cuda(a, b, out_dtype=out)
+    torch.cuda.synchronize()
+    name = {torch.bfloat16: "matmul_bf16", torch.float16: "matmul_fp16",
+            torch.int8: "matmul_int8", torch.float8_e4m3fn: "matmul_fp8"}[dtype]
+    now = _util.launch_counts()
+    assert now[name] == counts.get(name, 0) + 1
+    if dtype.itemsize == 1:
+        assert now["matmul_transpose"] == counts.get("matmul_transpose", 0) + 1
+    assert got.shape == (m, n) and got.dtype == out
+    want = ref.matmul_ref(a, b, out)
+    exact = a.double() @ b.double()
+    if dtype == torch.int8:  # every sum here stays below 2^24: exact in fp32 too
+        assert torch.equal(got, want)
+    elif out == torch.float8_e4m3fn:
+        # NaN past 448's rounding range; a sum within 1e-3 of that line may go
+        # either way, the kernel's and the plain version's fp32 sums differing
+        sure = (exact.abs() - ref.FP8_E4M3_NAN_PAST).abs() > 1e-3 * ref.FP8_E4M3_NAN_PAST
+        gf, wf = got.float(), want.float()
+        assert torch.equal(torch.isnan(gf)[sure], torch.isnan(wf)[sure])
+        fin = ~torch.isnan(gf) & ~torch.isnan(wf)
+        torch.testing.assert_close(gf[fin], wf[fin], rtol=0.125, atol=0.125)
+    else:
+        limit = _ROW_LIMIT.get((dtype, out)) or _ROW_LIMIT[str(out).removeprefix("torch.")]
+        assert _row_rel_err(got, exact) <= limit
+
+
+def test_int8_kernel_accumulates_exactly_past_2_to_the_24(dev):
+    """The s32 accumulator keeps 127 * 127 * 1152 + 1 (past 2^24, odd)
+    exact, where the reference's fp32 accumulator, and the plain version,
+    round it: the kept deviation of ROADMAP.md."""
+    k = 1152
+    a = torch.zeros((128, k + 128), dtype=torch.int8, device=dev)
+    b = torch.zeros((k + 128, 128), dtype=torch.int8, device=dev)
+    a[:, :k], b[:k] = 127, 127
+    a[:, k], b[k] = 1, 1
+    got = matmul_cuda(a, b, out_dtype=torch.int32)
+    assert (got == 127 * 127 * k + 1).all()
+    assert (ref.matmul_ref(a, b, torch.int32) != got).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("n", [100, 136, 1])
+def test_matmul_tensor_core_writes_nothing_past_n(dev, dtype, n):
+    """Through the C entry point into rows of n + 24 elements: the 24 past N
+    keep their sentinel."""
+    from repro_torch.kernels import matmul as mm
+
+    m, k, pad = 200, 96, 24
+    a, b = _operands(dev, dtype, m, k, n, seed=n)
+    a = mm._tma_operand(a)
+    b = mm.transpose8(b) if dtype.itemsize == 1 else mm._tma_operand(b)
+    out = torch.full((m, n + pad), -7.0, device=dev)
+    _util.launch(mm.TC_KERNELS[dtype], "repro_matmul_tc", mm._TC_ARGTYPES, dev,
+                 _util.DTYPE_CODES[dtype], _util.DTYPE_CODES[torch.float32], a.data_ptr(),
+                 b.data_ptr(), out.data_ptr(), m, n, k, a.shape[1], b.shape[1], n + pad)
+    torch.cuda.synchronize()
+    assert (out[:, n:] == -7.0).all()
+    want = ref.matmul_ref(*_operands(dev, dtype, m, k, n, seed=n), torch.float32)
+    # fp8's accumulation keeps ~14 bits within a 128-deep tile
+    torch.testing.assert_close(out[:, :n], want, rtol=1e-3, atol=2e-3 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("width", [128, 1, 1000])
+@pytest.mark.parametrize("name", ["move", "add.f32", "mul.f32", "fma.f32", "max.f32",
+                                  "rsqrt.f32", "exp.f32", "tanh.f32", "log.f32", "add.s32",
+                                  "mul.s32", "shift.s32"])
+def test_op_latency_kernel(dev, name, width):
+    """Each chain against the same chain as PyTorch ops on the card: equal
+    for the arithmetic ops (fma as one rounding); the transcendental ones
+    within 1e-6, the library routines' ulps."""
+    from repro_torch.kernels import op_latency as ops
+
+    x0 = ops.chain_input(ops.OPS[name][0], width, dev)
+    got = ops.op_chain(name, x0, 4096)
+    want = ops.op_chain_ref(name, x0, 4096)
+    if name.split(".")[0] in ("rsqrt", "exp", "tanh", "log"):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        assert torch.equal(got, want)
+
+
+def test_op_latency_probe_times_the_alu(dev):
+    _util.reset_launch_counts()
+    res = probes.probe_op_latency(chain=4096, device=dev)
+    lat = dict(zip(res.x, res.y))
+    assert res.meta["backend"] == "cuda" and _util.launch_counts()["op_latency"] > 0
+    assert all(np.isfinite(v) and v >= 0 for v in lat.values())
+    assert all(lat[op] < 10 for op in ("add.f32", "mul.f32", "fma.f32"))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bsz,s,h,p,n,chunk", [(1, 1024, 2, 64, 64, 512), (1, 512, 3, 192, 16, 256),
+                                               (1, 512, 2, 16, 192, 256),
+                                               (1, 1024, 1, 160, 300, 1024),
+                                               (1, 12288, 1, 128, 128, 12288)])
+def test_ssm_scan_kernel_past_the_old_limits(dev, dtype, tol, bsz, s, h, p, n, chunk):
+    """Chunks past 256 (the cumulative decay scanned in segments with a
+    carry; at 12288 with P = N = 128 it no longer fits beside the tiles in
+    shared memory and goes to the global scratch), P past 128 (split over
+    the grid) and N past 128 (slabs summed in fp32), against the chunked
+    plain version at the slow decay."""
+    from repro_torch.kernels.ssm_scan import DIM_TILE
+
+    if chunk == 12288:
+        assert not _util.library().repro_ssm_scan_acum_fits(min(p, DIM_TILE), min(n, DIM_TILE),
+                                                            chunk)
+    u, a, b, c = _ssm_inputs(dev, dtype, bsz, s, h, p, n, seed=p + n, decay="slow")
+    got = tapi.ssm_scan(u, a, b, c, chunk=chunk)
+    want = ref.ssm_scan_chunked_ref(*_util.flatten_ssm(u, a, b, c), chunk)
+    want = _util.unflatten_heads(want, bsz).float()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hd,h,hkv,causal", [(320, 4, 2, True), (512, 2, 2, False),
+                                             (264, 3, 1, True)])
+def test_flash_attention_wide_head(dev, dtype, tol, hd, h, hkv, causal):
+    """Head widths past 256 through the op, on the wide SIMT kernel."""
+    q = _rand((2, 200, h, hd), dev, dtype, 1)
+    k, v = (_rand((2, 200, hkv, hd), dev, dtype, s) for s in (2, 3))
+    before = _util.launch_counts().get("flash_attention", 0)
+    got = tapi.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _util.launch_counts()["flash_attention"] == before + 1
+    want = tapi.flash_attention(q.float(), k.float(), v.float(), causal=causal, backend="torch")
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)

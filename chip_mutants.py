@@ -24,12 +24,16 @@ family:
   ``chip_smoke.matmul_lp_checks`` (every instance against the plain version
   at 2048^3, 4096^3 and 300 x 200 x 100), then the card tests of the matmul
   (``-k matmul``).  A mutant is caught when a check or a test fails.
-- ``ssm``: faults of the ssm_scan kernel that change y by ~2 % where they
-  act.  ``chip_smoke.ssm_bf16_case`` at zamba2-7b's shape, then
+- ``ssm``: faults of the ssm_scan kernel's wgmma route (the bf16 path)
+  that change y by ~1-2 % where they act: three in its chunk outputs, two
+  in the state passed between chunks.  ``chip_smoke.ssm_bf16_case`` at
+  zamba2-7b's shape, chunk 256, at the init's decay and at a slow one, then
   ``check_close`` (rtol = atol = 2e-2 of the output's largest value) and
   ``check_rows`` (each row's ||err|| / ||want|| within SSM_ROW_RTOL of the
-  fp32 plain output).  A mutant is caught when it fails ``check_rows`` or
-  the run; each is meant to pass ``check_close``.
+  fp32 plain output, SSM_SLOW_ROW_RTOL at the slow decay).  A mutant is
+  caught when it fails ``check_rows`` at either decay, or the run; each is
+  meant to pass ``check_close``, and the state faults to show only at the
+  slow decay, where the carried state counts.
 
 Prints one JSON object of the verdicts and times (also to ``--out``).
 Exits 0 when the tree passes every check and every mutant is caught.
@@ -52,6 +56,7 @@ MATMUL = os.path.join(KERNELS, "csrc", "matmul.cu")
 COMMON = os.path.join(KERNELS, "csrc", "common.cuh")
 SSM = os.path.join(KERNELS, "csrc", "ssm_scan.cu")
 ARCHS = ("gemma-2b", "zamba2-7b")  # chip_smoke.FLASH_MODEL_SHAPES
+DECAYS = ("fast", "slow")  # the ssm case's two decays
 
 # name: (what the fault does, text of the kernel, its replacement).  All but
 # the last touch only blocks of query rows from 512 on, whose outputs are
@@ -167,25 +172,37 @@ MATMUL_MUTANTS = {
     ),
 }
 
-# name: (what the fault does, text of the kernel, its replacement): each
-# changes y by ~2 % where it acts, under check_close's limit (2e-2 of the
-# largest |y| beside an error of 2e-2 of the value itself) and over the row
-# check's (5e-3)
-_W = "            w[ii] = (s <= t && t < L) ? sc[ii][jj] * clip_exp(acum[t] - acum[s]) : 0.f;\n"
+# name: (what the fault does, text of the kernel, its replacement), all in the
+# wgmma route's passes 2 and 3: each changes y by ~1-3 % where it acts, under
+# check_close's limit (2e-2 of the largest |y| beside an error of 2e-2 of the
+# value itself) and over the row checks' (~5e-3)
+_W = "                            ? sc[4 * jj + e] * clip_exp(at[e / 2] - as[2 * jj + (e % 2)])\n"
 SSM_MUTANTS = {
     "late_scores_scaled": (
-        "chunks from step 512 on scale the intra-chunk scores by 0.98",
-        _W, _W.replace("sc[ii][jj] *", "(t0 >= 512 ? 0.98f : 1.f) * sc[ii][jj] *"),
+        "chunks from step 512 on scale the intra-chunk scores by 0.99",
+        _W, _W.replace("? sc[4 * jj + e] *", "? (t0 >= 512 ? 0.99f : 1.f) * sc[4 * jj + e] *"),
     ),
     "late_decay_weakened": (
-        "chunks from step 512 on take 0.97 of the decay between two steps in the scores",
-        _W, _W.replace("clip_exp(acum[t] - acum[s])",
-                       "clip_exp((t0 >= 512 ? 0.97f : 1.f) * (acum[t] - acum[s]))"),
+        "chunks from step 512 on take 0.98 of the decay between two steps in the scores",
+        _W, _W.replace("clip_exp(at[e / 2] - as[2 * jj + (e % 2)])",
+                       "clip_exp((t0 >= 512 ? 0.98f : 1.f) * (at[e / 2] - as[2 * jj + (e % 2)]))"),
     ),
     "one_head_scaled": (
         "head 7's y is scaled by 0.98",
-        "            yr[p] = from_f32<T>(v);\n",
-        "            yr[p] = from_f32<T>(h == 7 ? 0.98f * v : v);\n",
+        "  T* yb = y + ((static_cast<long long>(b) * S + t0) * H + h) * P;\n",
+        "  if (h == 7)\n    for (int k = 0; k < PW / 2; ++k) acc[k] *= 0.98f;\n"
+        "  T* yb = y + ((static_cast<long long>(b) * S + t0) * H + h) * P;\n",
+    ),
+    "late_state_scaled": (
+        "the state entering chunks from step 512 on is scaled by 0.98 in y",
+        "      acc[k] *= e[(k % 4) / 2];\n",
+        "      acc[k] *= (t0 >= 512 ? 0.98f : 1.f) * e[(k % 4) / 2];\n",
+    ),
+    "one_chunk_decay_weakened": (
+        "the state passing takes chunk 1's exp(atot) as exp(0.97 atot): the state carried "
+        "into chunks 2 and 3 decays too little",
+        "    const float d = expf(atot[static_cast<long long>(c) * L]);\n",
+        "    const float d = expf((c == 1 ? 0.97f : 1.f) * atot[static_cast<long long>(c) * L]);\n",
     ),
 }
 
@@ -278,18 +295,22 @@ import chip_smoke as cs
 
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(0)
-_, got, want, want32 = cs.ssm_bf16_case(torch, dev, gen)
 out = {}
-for check, run in (
-    ("check_close", lambda: cs.check_close("ssm", got.float(), want.float(), 2e-2, 2e-2)),
-    ("check_rows", lambda: cs.check_rows("ssm", got, want32, cs.SSM_ROW_RTOL)),
-):
-    try:
-        out[check] = {"passed": True, "err": run()}
-    except AssertionError as e:
-        out[check] = {"passed": False, "message": str(e)}
-out["max_abs_err"] = cs.max_abs_err(got.float(), want.float())
-out["row_rel_err"] = cs.row_rel_err(got, want32)
+for decay, shift, rows in (("fast", 0.0, cs.SSM_ROW_RTOL), ("slow", -5.0, cs.SSM_SLOW_ROW_RTOL)):
+    _, got, want, want32 = cs.ssm_bf16_case(torch, dev, gen, shift=shift)
+    verdicts = {}
+    for check, run in (
+        ("check_close", lambda: cs.check_close("ssm", got.float(), want.float(), 2e-2, 2e-2)),
+        ("check_rows", lambda: cs.check_rows("ssm", got, want32, rows)),
+    ):
+        try:
+            verdicts[check] = {"passed": True, "err": run()}
+        except AssertionError as e:
+            verdicts[check] = {"passed": False, "message": str(e)}
+    verdicts["max_abs_err"] = cs.max_abs_err(got.float(), want.float())
+    verdicts["row_rel_err"] = cs.row_rel_err(got, want32)
+    out[decay] = verdicts
+    del got, want, want32
 print("VERDICTS " + json.dumps(out))
 """
 CASES = {"flash": FLASH_CASE, "bandwidth": BANDWIDTH_CASE, "matmul": MATMUL_CASE,
@@ -345,17 +366,19 @@ def run_case(root: str, family: str) -> dict:
 
 def caught(family: str, r: dict) -> dict:
     """Which checks a mutant's run failed."""
-    if family == "flash":
-        ran = all(arch in r for arch in ARCHS)
-        return {
+    if family in ("flash", "ssm"):  # a case per LM shape, or per decay
+        cases = ARCHS if family == "flash" else DECAYS
+        ran = all(case in r for case in cases)
+        verdicts = {
             "run_fails": not ran,
-            "check_close_fails": ran and not all(r[a]["check_close"]["passed"] for a in ARCHS),
-            "check_rows_fails": ran and not all(r[a]["check_rows"]["passed"] for a in ARCHS),
+            **{f"{check}_fails": ran and not all(r[case][check]["passed"] for case in cases)
+               for check in ("check_close", "check_rows")},
         }
+        if family == "ssm":
+            verdicts.update({f"check_rows_fails_{case}": ran and not r[case]["check_rows"]["passed"]
+                             for case in cases})
+        return verdicts
     ran = "error" not in r
-    if family == "ssm":
-        return {"run_fails": not ran,
-                **{f"{c}_fails": ran and not r[c]["passed"] for c in ("check_close", "check_rows")}}
     checks = ("axpy_checks", "copy_checks") if family == "bandwidth" else ("matmul_lp_checks",)
     return {
         "run_fails": not ran,

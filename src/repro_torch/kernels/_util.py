@@ -9,7 +9,8 @@ use (one ``nvcc`` per source, all started together, then one link into a
 single shared library under ``build/repro_torch/``) and loads the result with
 ``ctypes``; importing this module compiles nothing, so the package imports on
 a host with no CUDA toolkit.  :func:`launch` calls one entry point, raises on
-a non-zero CUDA error code and counts the launch.
+a non-zero CUDA error code and counts the launch, and, for a kernel with
+more than one route, the route it took.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 _LIB = None
 _LAUNCHES: dict = {}
+_ROUTES: dict = {}
 
 
 def fit_block(block: int, dim: int) -> int:
@@ -100,8 +102,15 @@ def launch_counts() -> dict:
     return dict(_LAUNCHES)
 
 
+def route_counts() -> dict:
+    """Launches per route, {kernel: {route: count}}, since the last reset, for
+    the kernels whose wrapper names a route."""
+    return {k: dict(v) for k, v in _ROUTES.items()}
+
+
 def reset_launch_counts() -> None:
     _LAUNCHES.clear()
+    _ROUTES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -178,9 +187,11 @@ def _entry(symbol: str, argtypes: tuple):
     return fn
 
 
-def launch(kernel: str, symbol: str, argtypes: tuple, device: torch.device, *args) -> None:
+def launch(kernel: str, symbol: str, argtypes: tuple, device: torch.device, *args,
+           route: str | None = None) -> None:
     """Call C entry point ``symbol`` on PyTorch's current stream of ``device``;
-    raise on a CUDA error code, else count one launch of ``kernel``."""
+    raise on a CUDA error code, else count one launch of ``kernel`` (and one
+    of its ``route``, when given)."""
     fn = _entry(symbol, argtypes)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
@@ -188,6 +199,9 @@ def launch(kernel: str, symbol: str, argtypes: tuple, device: torch.device, *arg
         msg = library().repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} ({msg})")
     _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
+    if route is not None:
+        routes = _ROUTES.setdefault(kernel, {})
+        routes[route] = routes.get(route, 0) + 1
 
 
 def check_cuda_operand(name: str, t: torch.Tensor, align: int = 16) -> None:

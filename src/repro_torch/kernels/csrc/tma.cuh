@@ -1,5 +1,5 @@
 // TMA and mbarrier helpers shared by the kernels that feed wgmma
-// (flash_attention.cu, matmul.cu).  Host side: cuTensorMapEncodeTiled,
+// (flash_attention.cu, matmul.cu, ssm_scan.cu).  Host side: cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint so that the library links with
 // plain nvcc and no -lcuda.
 #pragma once
@@ -45,6 +45,14 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap& map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap& map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
 }
 

@@ -1,5 +1,5 @@
 """Write ``csrc/wgmma.cuh``: the Hopper ``wgmma`` instructions the
-flash-attention and matmul kernels issue, one inline-PTX wrapper per (width,
+flash-attention, matmul and ssm_scan kernels issue, one inline-PTX wrapper per (width,
 input type, operand source and layout).
 
     PYTHONPATH=src python -m repro_torch.kernels.gen_wgmma
@@ -17,6 +17,7 @@ SS_WIDTHS = (64, 128)            # S = Q K^T: n is the key tile
 RS_WIDTHS = (64, 112, 128, 256)  # O += P V: n is the head width
 TYPES = (("bf16", "__nv_bfloat16"), ("f16", "__half"))
 SST_WIDTHS = (128,)              # matmul, 16-bit: B read N-major
+STT_WIDTHS = (64, 128)           # ssm_scan's chunk states u^T B: A read M-major, B N-major
 K32_WIDTHS = (128,)              # matmul, 8-bit: both operands K-major
 # (ptx types, C type, accumulator C type, its asm constraint, the trailing
 # immediates: integer wgmma takes no scale-a/b)
@@ -34,6 +35,8 @@ HEADER = """\
 //     MN-major (transpose bit set);
 //   WgmmaSSt<N, T>::mma(d, desc_a, desc_b, scale_d): A K-major and B MN-major
 //     (transpose bit set), both from shared memory;
+//   WgmmaSStt<N, T>::mma(d, desc_a, desc_b, scale_d): A and B both MN-major
+//     (both transpose bits set), both from shared memory;
 //   WgmmaK32<N, T>::mma(d, desc_a, desc_b, scale_d): the 8-bit types, k 32,
 //     both operands K-major (the ISA has no transpose for them); int8 into
 //     s32 (d is int), fp8 e4m3 into f32.
@@ -64,6 +67,7 @@ __device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r):
 template <int N, typename T> struct WgmmaSS;
 template <int N, typename T> struct WgmmaRS;
 template <int N, typename T> struct WgmmaSSt;
+template <int N, typename T> struct WgmmaSStt;
 template <int N, typename T> struct WgmmaK32;
 """
 
@@ -76,7 +80,8 @@ def outs(n: int, constraint: str = "f") -> str:
     return ", ".join(f'"+{constraint}"(d[{i}])' for i in range(n))
 
 
-def ss(n: int, ptx: str, ctype: str, name: str = "WgmmaSS", trans_b: int = 0) -> str:
+def ss(n: int, ptx: str, ctype: str, name: str = "WgmmaSS", trans_b: int = 0,
+       trans_a: int = 0) -> str:
     r = n // 2
     return f"""
 template <> struct {name}<{n}, {ctype}> {{
@@ -84,7 +89,7 @@ template <> struct {name}<{n}, {ctype}> {{
     asm volatile(
         "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 2}, 0;\\n"
         "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.{ptx}.{ptx} "
-        "{{{regs(r)}}}, %{r}, %{r + 1}, p, 1, 1, 0, {trans_b};\\n}}\\n"
+        "{{{regs(r)}}}, %{r}, %{r + 1}, p, 1, 1, {trans_a}, {trans_b};\\n}}\\n"
         : {outs(r)}
         : "l"(da), "l"(db), "r"(scale_d));
   }}
@@ -133,6 +138,7 @@ def render() -> str:
         parts += [ss(n, ptx, ctype) for n in SS_WIDTHS]
         parts += [rs(n, ptx, ctype) for n in RS_WIDTHS]
         parts += [ss(n, ptx, ctype, "WgmmaSSt", 1) for n in SST_WIDTHS]
+        parts += [ss(n, ptx, ctype, "WgmmaSStt", 1, 1) for n in STT_WIDTHS]
     for ptx, ctype, acc, constraint, imm in K32_TYPES:
         parts += [k32(n, ptx, ctype, acc, constraint, imm) for n in K32_WIDTHS]
     return "".join(parts)

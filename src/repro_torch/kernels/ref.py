@@ -116,27 +116,70 @@ def ssm_scan_ref(u, a_log, b, c):
     return torch.stack(ys, dim=1).to(u.dtype)
 
 
+def ssd_chunk_states(u, a_log, b, chunk: int):
+    """Pass 1 of the chunked SSD scan: each chunk's own state, from a zero
+    state at its start.  u (B,S,H,P); a_log (B,S,H); b (B,S,N), shared by
+    the heads; S % chunk == 0.  Returns ``states`` (B,H,nc,P,N) fp32,
+    sum_s exp(clip(atot - acum_s, -60, 0)) u_s b_s^T over each chunk, and
+    ``acum`` (B,H,S) fp32, the cumulative sum of a_log within each chunk
+    (atot is its last entry)."""
+    bsz, s, h, p = u.shape
+    if s % chunk:
+        raise ValueError(f"S {s} does not divide into chunk {chunk}")
+    nc, n = s // chunk, b.shape[-1]
+    acum = torch.cumsum(a_log.float().reshape(bsz, nc, chunk, h), dim=2)  # (B,nc,L,H)
+    sdecay = torch.exp((acum[:, :, -1:] - acum).clamp(-60.0, 0.0))
+    us = u.float().reshape(bsz, nc, chunk, h, p) * sdecay[..., None]
+    states = torch.einsum("bclhp,bcln->bhcpn", us, b.float().reshape(bsz, nc, chunk, n))
+    return states.contiguous(), acum.permute(0, 3, 1, 2).reshape(bsz, h, s).contiguous()
+
+
+def ssd_pass_states(states, acum, chunk: int, h0=None):
+    """Pass 2: the state entering each chunk, h_0 = h0 (zero when None) and
+    h_{c+1} = h_c exp(atot_c) + states_c.  states (B,H,nc,P,N); acum (B,H,S)
+    from :func:`ssd_chunk_states`; h0 (B,H,P,N).  Returns (``entering``
+    (B,H,nc,P,N) fp32, ``h_final`` (B,H,P,N), the state after the last
+    chunk)."""
+    decay = torch.exp(acum[..., chunk - 1::chunk])  # (B,H,nc): exp(atot) of each chunk
+    h = torch.zeros_like(states[:, :, 0]) if h0 is None else h0.float()
+    entering = []
+    for c in range(states.shape[2]):
+        entering.append(h)
+        h = h * decay[:, :, c, None, None] + states[:, :, c]
+    return torch.stack(entering, dim=2), h
+
+
+def ssd_chunk_outputs(u, b, c, entering, acum, chunk: int):
+    """Pass 3: y (B,S,H,P) fp32 from each chunk's inputs and the state
+    entering it: the decay-masked (C.B^T) scores times u, plus
+    exp(acum_t) (C_t . h).  u (B,S,H,P); b/c (B,S,N); entering
+    (B,H,nc,P,N) and acum (B,H,S) from passes 1 and 2."""
+    bsz, s, h, p = u.shape
+    nc, n = s // chunk, b.shape[-1]
+    bf, cf = (x.float().reshape(bsz, nc, chunk, n) for x in (b, c))
+    ac = acum.reshape(bsz, h, nc, chunk)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=u.device).tril()
+    dd = (ac[..., :, None] - ac[..., None, :]).clamp(-60.0, 0.0)  # (B,H,nc,L,L): t, s
+    w = torch.einsum("bctn,bcsn->bcts", cf, bf)[:, None] * torch.exp(dd) * tri
+    y = torch.einsum("bhcts,bcshp->bcthp", w, u.float().reshape(bsz, nc, chunk, h, p))
+    y_inter = torch.einsum("bctn,bhcpn->bcthp", cf, entering)
+    y = y + y_inter * torch.exp(ac).permute(0, 2, 3, 1)[..., None]
+    return y.reshape(bsz, s, h, p)
+
+
+def ssd_chunked_ref(u, a_log, b, c, chunk: int, h0=None):
+    """The three passes composed: (y (B,S,H,P) fp32, h_final (B,H,P,N))
+    from the state h0 (zero when None).  The model layout of
+    :func:`ssd_chunk_states`; S % chunk == 0."""
+    states, acum = ssd_chunk_states(u, a_log, b, chunk)
+    entering, h_final = ssd_pass_states(states, acum, chunk, h0)
+    return ssd_chunk_outputs(u, b, c, entering, acum, chunk), h_final
+
+
 def ssm_scan_chunked_ref(u, a_log, b, c, chunk: int):
     """The chunked SSD math of the reference's Pallas ``_ssd_kernel``, in fp32:
     the ``ssm_scan`` kernel's plain version.  u (BH,S,P); a_log (BH,S); b/c
-    (BH,S,N); S % chunk == 0.  The state starts at zero; y has u's dtype."""
-    bh, s, p = u.shape
-    if s % chunk:
-        raise ValueError(f"S {s} does not divide into chunk {chunk}")
-    uf, af, bf, cf = u.float(), a_log.float(), b.float(), c.float()
-    h = torch.zeros((bh, p, b.shape[-1]), dtype=torch.float32, device=u.device)
-    tri = torch.ones((chunk, chunk), device=u.device).tril()
-    ys = []
-    for t0 in range(0, s, chunk):
-        uj, bj, cj = uf[:, t0:t0 + chunk], bf[:, t0:t0 + chunk], cf[:, t0:t0 + chunk]
-        acum = torch.cumsum(af[:, t0:t0 + chunk], dim=1)  # (BH, L)
-        atot = acum[:, -1:]
-        # intra-chunk: the decay-masked (C.B^T) score matrix
-        dd = acum[:, :, None] - acum[:, None, :]
-        w = (cj @ bj.transpose(1, 2)) * torch.exp(dd.clamp(-60.0, 0.0)) * tri
-        # inter-chunk: the carried state's term
-        y_inter = (cj @ h.transpose(1, 2)) * torch.exp(acum)[..., None]
-        ys.append(w @ uj + y_inter)
-        sdecay = torch.exp((atot - acum).clamp(-60.0, 0.0))  # (BH, L)
-        h = h * torch.exp(atot)[..., None] + (uj * sdecay[..., None]).transpose(1, 2) @ bj
-    return torch.cat(ys, dim=1).to(u.dtype)
+    (BH,S,N); S % chunk == 0.  The state starts at zero; y has u's dtype.
+    :func:`ssd_chunked_ref` with each (batch, head) a batch row of one head."""
+    y, _ = ssd_chunked_ref(u[:, :, None], a_log[:, :, None], b, c, chunk)
+    return y[:, :, 0].to(u.dtype)

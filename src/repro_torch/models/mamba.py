@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ref import ssd_chunked_ref
 from . import attention as attn
 from . import mlp as mlps
 from .common import (
@@ -91,44 +92,23 @@ def _conv_step(x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor, b: 
 
 
 def ssd_chunked(u, a_log, B_, C_, h0, chunk: int):
-    """Chunked SSD scan (plain torch).
+    """Chunked SSD scan (plain torch): ``kernels.ref.ssd_chunked_ref``, the
+    ssm_scan kernel's plain passes composed, around S zero-padded to a
+    multiple of ``chunk`` (a_log 0 is a decay of 1 and u, B, C 0 add
+    nothing, so the final state is the one after step S).
 
     u (B,S,H,P) dt-scaled inputs; a_log (B,S,H) per-step log decay (<=0);
     B_/C_ (B,S,N); h0 (B,H,P,N).  Returns (y (B,S,H,P), h_final).
     """
-    b, s, _, _ = u.shape
-    nc = -(-s // chunk)
-    pad = nc * chunk - s
+    s = u.shape[1]
+    pad = -s % chunk
     if pad:
         u = F.pad(u, (0, 0, 0, 0, 0, pad))
         a_log = F.pad(a_log, (0, 0, 0, pad))
         B_ = F.pad(B_, (0, 0, 0, pad))
         C_ = F.pad(C_, (0, 0, 0, pad))
-    tri = torch.ones((chunk, chunk), device=u.device).tril()[None, :, :, None]
-    hprev = h0.float()
-    ys = []
-    for j in range(nc):
-        sl = slice(j * chunk, (j + 1) * chunk)
-        u_j, b_j, c_j = u[:, sl].float(), B_[:, sl].float(), C_[:, sl].float()
-        acum = torch.cumsum(a_log[:, sl].float(), dim=1)  # (B,L,H) decay chunk-start..t
-        atot = acum[:, -1:, :]  # (B,1,H)
-        # intra-chunk
-        cb = torch.einsum("bln,bmn->blm", c_j, b_j)
-        decay = torch.exp(
-            (acum[:, :, None, :] - acum[:, None, :, :]).clamp(-60.0, 0.0)
-        )  # (B,L,M,H): exp(A_t - A_s)
-        w = cb[..., None] * decay * tri
-        y_intra = torch.einsum("blmh,bmhp->blhp", w, u_j)
-        # inter-chunk (state contribution)
-        y_inter = torch.einsum("bln,bhpn->blhp", c_j, hprev) * torch.exp(acum)[..., None]
-        # new state
-        sdecay = torch.exp((atot - acum).clamp(-60.0, 0.0))  # (B,L,H)
-        hprev = hprev * torch.exp(atot).transpose(1, 2)[..., None] + torch.einsum(
-            "bln,blh,blhp->bhpn", b_j, sdecay, u_j
-        )
-        ys.append(y_intra + y_inter)
-    y = torch.cat(ys, dim=1)
-    return y[:, :s].to(u.dtype), hprev
+    y, h_final = ssd_chunked_ref(u, a_log, B_, C_, chunk, h0)
+    return y[:, :s].to(u.dtype), h_final
 
 
 def mamba_forward(p: Params, x: torch.Tensor, cfg, h0=None, return_state: bool = False):

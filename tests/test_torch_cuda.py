@@ -324,21 +324,35 @@ def _ssm_inputs(dev, dtype, bsz, s, h, p, n, seed, decay="fast"):
     return u.to(dtype), a, b.to(dtype), c.to(dtype)
 
 
+# ssm_scan's tolerances, relative to max |y|: fp32 sum order, or one rounding
+# of y to the 16-bit type
+_SSM_TOL = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2), (torch.float16, 2e-3)]
+
+
+def _ssm_route(dtype, p, n):
+    from repro_torch.kernels.ssm_scan import tc_route
+
+    return "wgmma" if tc_route(dtype, p, n) else "simt"
+
+
 @pytest.mark.parametrize("decay", ["fast", "slow"])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,tol", _SSM_TOL)
 @pytest.mark.parametrize("chunk", [16, 40, 64, 256])
 @pytest.mark.parametrize("bsz,s,h,p,n", [(1, 300, 3, 16, 16), (2, 520, 2, 64, 64),
                                          (1, 100, 2, 8, 4), (1, 130, 1, 128, 128)])
 def test_ssm_scan_kernel(dev, dtype, tol, chunk, bsz, s, h, p, n, decay):
     """Against the chunked plain version on the same (padded) inputs; S is a
-    multiple of no chunk, so the op's wrapper pads.  The tolerance is fp32
-    sum order (1e-4) or one bf16 rounding of y (2e-2), relative to max |y|.
-    The slow decay is what makes the state carry and the far key tiles count."""
+    multiple of no chunk, so the op's wrapper pads.  bf16/fp16 take the
+    wgmma route but at P 8, N 4 (the SIMT kernel's, as fp32).  The slow
+    decay is what makes the state carry and the far key tiles count."""
     u, a, b, c = _ssm_inputs(dev, dtype, bsz, s, h, p, n, seed=chunk + s, decay=decay)
     before = _util.launch_counts().get("ssm_scan", 0)
+    routes = _util.route_counts().get("ssm_scan", {})
     got = tapi.ssm_scan(u, a, b, c, chunk=chunk)
     torch.cuda.synchronize()
     assert _util.launch_counts()["ssm_scan"] == before + 1
+    route = _ssm_route(dtype, p, n)
+    assert _util.route_counts()["ssm_scan"][route] == routes.get(route, 0) + 1
     assert got.shape == u.shape and got.dtype == dtype
     fit = min(chunk, s)
     padded = [_util.pad_to_multiple(t, fit, 1) for t in (u, a, b, c)]
@@ -506,7 +520,7 @@ def test_op_latency_probe_times_the_alu(dev):
     assert all(lat[op] < 10 for op in ("add.f32", "mul.f32", "fma.f32"))
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,tol", _SSM_TOL)
 @pytest.mark.parametrize("bsz,s,h,p,n,chunk", [(1, 1024, 2, 64, 64, 512), (1, 512, 3, 192, 16, 256),
                                                (1, 512, 2, 16, 192, 256),
                                                (1, 1024, 1, 160, 300, 1024),
@@ -516,7 +530,8 @@ def test_ssm_scan_kernel_past_the_old_limits(dev, dtype, tol, bsz, s, h, p, n, c
     carry; at 12288 with P = N = 128 it no longer fits beside the tiles in
     shared memory and goes to the global scratch), P past 128 (split over
     the grid) and N past 128 (slabs summed in fp32), against the chunked
-    plain version at the slow decay."""
+    plain version at the slow decay.  bf16/fp16 at (1, 1024, 2, 64, 64), zamba2-7b's
+    P and N at the autotuner's chunk 512, and at P = N = 128 take the wgmma route."""
     from repro_torch.kernels.ssm_scan import DIM_TILE
 
     if chunk == 12288:
@@ -543,3 +558,72 @@ def test_flash_attention_wide_head(dev, dtype, tol, hd, h, hkv, causal):
     assert _util.launch_counts()["flash_attention"] == before + 1
     want = tapi.flash_attention(q.float(), k.float(), v.float(), causal=causal, backend="torch")
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan's wgmma route pass by pass, and the routes it leaves to the SIMT kernel
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,tol", _SSM_TOL[1:])
+@pytest.mark.parametrize("bsz,s,h,p,n,chunk", [(2, 512, 3, 64, 64, 128), (1, 240, 2, 16, 32, 40),
+                                               (1, 256, 1, 128, 128, 256),
+                                               (1, 192, 2, 80, 48, 64), (1, 1024, 2, 64, 64, 512)])
+def test_ssd_passes_against_their_plain_versions(dev, dtype, tol, bsz, s, h, p, n, chunk):
+    """Each pass on the plain version's own inputs at the slow decay: pass 1's
+    acum within fp32 sum order (1e-5 of max |acum|) and its chunk states
+    within 1e-4 of their max (sdecay B enters as a hi + lo pair of 16-bit
+    values, ~16 bits); pass 2 within 1e-5 (the same fp32 recurrence); pass 3
+    within one rounding of y to the 16-bit type."""
+    from repro_torch.kernels import ssm_scan as ssd
+
+    u, a, b, c = _ssm_inputs(dev, dtype, bsz, s, h, p, n, seed=p + n + chunk, decay="slow")
+    _util.reset_launch_counts()
+    states, acum = ssd.ssd_chunk_states_cuda(u, a, b, chunk=chunk)
+    want_states, want_acum = ref.ssd_chunk_states(u, a, b, chunk)
+    torch.testing.assert_close(acum, want_acum, rtol=1e-5,
+                               atol=1e-5 * float(want_acum.abs().max()))
+    torch.testing.assert_close(states, want_states, rtol=1e-4,
+                               atol=1e-4 * float(want_states.abs().max()))
+    entering = ssd.ssd_pass_states_cuda(want_states.clone(), want_acum, chunk=chunk)
+    want_entering, _ = ref.ssd_pass_states(want_states, want_acum, chunk)
+    torch.testing.assert_close(entering, want_entering, rtol=1e-5,
+                               atol=1e-5 * float(want_entering.abs().max()))
+    got = ssd.ssd_chunk_outputs_cuda(u, b, c, want_entering, want_acum, chunk=chunk)
+    want = ref.ssd_chunk_outputs(u, b, c, want_entering, want_acum, chunk)
+    assert got.shape == u.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol * float(want.abs().max()))
+    torch.cuda.synchronize()
+    assert _util.launch_counts() == {"ssd_chunk_states": 1, "ssd_pass_states": 1,
+                                     "ssd_chunk_outputs": 1}
+
+
+@pytest.mark.parametrize("dtype,p,n,route", [
+    (torch.float32, 64, 64, "simt"), (torch.bfloat16, 192, 16, "simt"),
+    (torch.bfloat16, 16, 300, "simt"), (torch.float16, 64, 24, "simt"),
+    (torch.bfloat16, 64, 64, "wgmma"), (torch.float16, 48, 128, "wgmma"),
+])
+def test_ssm_scan_routes(dev, dtype, p, n, route):
+    """fp32, P past 128, N past 128 and N off the multiples of 16 stay on the
+    SIMT kernel; each call counts one ssm_scan launch and one of its route."""
+    u, a, b, c = _ssm_inputs(dev, dtype, 1, 256, 2, p, n, seed=p + n, decay="slow")
+    _util.reset_launch_counts()
+    got = tapi.ssm_scan(u, a, b, c, chunk=128)
+    torch.cuda.synchronize()
+    assert _util.launch_counts() == {"ssm_scan": 1}
+    assert _util.route_counts() == {"ssm_scan": {route: 1}}
+    want = ref.ssm_scan_chunked_ref(*_util.flatten_ssm(u, a, b, c), 128)
+    want = _util.unflatten_heads(want, 1).float()
+    tol = dict(_SSM_TOL)[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol * float(want.abs().max()))
+
+
+def test_ssm_scan_wgmma_copies_a_misaligned_view(dev):
+    """A view of u, b and c at an offset off the TMA's 16 bytes still runs
+    (the wrapper copies it), and matches the same values aligned."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+    u, a, b, c = _ssm_inputs(dev, torch.bfloat16, 1, 128, 2, 64, 32, seed=3, decay="slow")
+    shifted = [torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape) for t in (u, b, c)]
+    assert all(t.data_ptr() % 16 for t in shifted)
+    want = ssm_scan_cuda(u, a, b, c, chunk=64)
+    torch.testing.assert_close(ssm_scan_cuda(shifted[0], a, *shifted[1:], chunk=64), want,
+                               rtol=0, atol=0)

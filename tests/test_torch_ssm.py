@@ -5,11 +5,13 @@ interpret mode, as the reference's tests run it, or its ``xla`` oracle) and
 through ``repro_torch``: the ``ssm_scan`` op's ``torch`` backend (the
 sequential recurrence), its ``cuda`` implementation called on CPU tensors
 (the wrapper's chunk clamp, padding and slicing around the kernel's plain
-version, ``ref.ssm_scan_chunked_ref``), the model-level ``ssd_chunked`` and
-the Mamba2 block.  Tolerances: float32 throughout; 2e-4 for the scan against
-the Pallas kernel (a different summation order over up to 128 steps, the
-reference tests' own), 1e-5 for the chunked plain version against the Pallas
-kernel (the same chunked arithmetic), 1e-4 for the model functions.
+version, ``ref.ssm_scan_chunked_ref``), the kernel's three plain passes
+(``ref.ssd_chunk_states``, ``ssd_pass_states``, ``ssd_chunk_outputs``) on
+their own and composed, the model-level ``ssd_chunked`` (folded onto them)
+and the Mamba2 block.  Tolerances: float32 throughout; 2e-4 for the scan
+against the Pallas kernel (a different summation order over up to 128 steps,
+the reference tests' own), 1e-5 for the chunked plain versions against the
+Pallas kernel (the same chunked arithmetic), 1e-4 for the model functions.
 """
 import jax
 import jax.numpy as jnp
@@ -26,6 +28,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.kernels import _util
 from repro_torch.kernels import api as tapi
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssm_scan as tssd
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 from repro_torch.models import mamba as tmamba
 
@@ -42,6 +45,18 @@ def _scan_inputs(bsz, s, h, p, n, seed):
     u = _np((bsz, s, h, p), seed)
     a = -np.abs(_np((bsz, s, h), seed + 1)) * 0.2
     return u, a, _np((bsz, s, n), seed + 2), _np((bsz, s, n), seed + 3)
+
+
+# a_log = -softplus(N(shift, 1)) a step, as the card's checks draw it: shift 0
+# is the init's fast decay (~0.8 a step), -5 a slow one (~0.007), under which
+# the state passed between the chunks decides y
+DECAY_SHIFT = {"fast": 0.0, "slow": -5.0}
+
+
+def _decay_inputs(bsz, s, h, p, n, seed, decay):
+    u, _, b, c = _scan_inputs(bsz, s, h, p, n, seed)
+    a = -np.logaddexp(0.0, _np((bsz, s, h), seed + 1) + DECAY_SHIFT[decay]).astype(np.float32)
+    return u, a, b, c
 
 
 @pytest.mark.parametrize("seq,chunk", [(64, 16), (128, 32), (100, 32), (40, 256)])
@@ -205,3 +220,84 @@ def test_mamba_init_matches_the_reference_tree():
             for k, v in tp.items()} == {k: (3, *s) for k, s in shapes.items()}
     assert torch.equal(tp["D"], torch.ones_like(tp["D"]))
     np.testing.assert_allclose(float(tp["conv_w"].std()), 0.1, rtol=0.2)
+
+
+# ---------------------------------------------------------------------------
+# the wgmma route's plain passes, and the route choice
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("decay", ["fast", "slow"])
+@pytest.mark.parametrize("chunk", [16, 40, 256])
+def test_ssd_passes_compose_to_the_pallas_kernel(chunk, decay):
+    """ref's three passes composed (ssd_chunked_ref on the model layout, B and
+    C shared by the heads) against ssm_scan_pallas in interpret mode over 3
+    chunks: rtol 1e-5 and atol 1e-5 of max |y| (the same chunked fp32
+    arithmetic, summed in another order)."""
+    bsz, h, p, n = 1, 2, 8, 4
+    ins = [torch.from_numpy(x) for x in _decay_inputs(bsz, 3 * chunk, h, p, n, chunk, decay)]
+    flat = [np.asarray(x) for x in _util.flatten_ssm(*ins)]
+    want = np.asarray(ssm_scan_pallas(*map(jnp.asarray, flat), chunk=chunk, interpret=True))
+    y, _ = tref.ssd_chunked_ref(*ins, chunk)
+    assert y.dtype == torch.float32
+    np.testing.assert_allclose(_util.flatten_heads(y).numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("decay", ["fast", "slow"])
+@pytest.mark.parametrize("chunk", [16, 40])
+def test_passed_states_are_the_reference_final_states(chunk, decay):
+    """ssd_pass_states' state after the last chunk is the reference
+    ssd_chunked's h_final from a zero state, and the state it passes into
+    chunk c is h_final of the first c chunks."""
+    bsz, h, p, n = 2, 3, 8, 4
+    u, a, b, c = _decay_inputs(bsz, 3 * chunk, h, p, n, chunk + 1, decay)
+    states, acum = tref.ssd_chunk_states(*map(torch.from_numpy, (u, a, b)), chunk)
+    assert states.shape == (bsz, h, 3, p, n) and acum.shape == (bsz, h, 3 * chunk)
+    entering, h_final = tref.ssd_pass_states(states, acum, chunk)
+    h0 = np.zeros((bsz, h, p, n), np.float32)
+    for steps, got in ((3 * chunk, h_final), (chunk, entering[:, :, 1]),
+                       (2 * chunk, entering[:, :, 2])):
+        _, want = jmamba.ssd_chunked(*(jnp.asarray(x[:, :steps]) for x in (u, a, b, c)),
+                                     jnp.asarray(h0), chunk)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert not entering[:, :, 0].any()
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("s,chunk", [(40, 16), (100, 40), (48, 16)])
+def test_folded_ssd_chunked_matches_the_reference(s, chunk, with_h0):
+    """models/mamba.py::ssd_chunked (the plain passes around S padded to the
+    chunk) against the reference's, from a zero state and from h0."""
+    bsz, h, p, n = 2, 3, 8, 4
+    u, a, b, c = _decay_inputs(bsz, s, h, p, n, s + chunk, "slow")
+    h0 = _np((bsz, h, p, n), 31) if with_h0 else np.zeros((bsz, h, p, n), np.float32)
+    want_y, want_h = jmamba.ssd_chunked(*map(jnp.asarray, (u, a, b, c, h0)), chunk)
+    got_y, got_h = tmamba.ssd_chunked(*map(torch.from_numpy, (u, a, b, c, h0)), chunk)
+    assert got_y.shape == (bsz, s, h, p)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), **TOL)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), **TOL)
+
+
+def test_pass_wrappers_on_cpu_tensors_compose_to_the_scan():
+    """The wgmma route's per-pass wrappers take their plain versions on CPU
+    tensors: composed, they give ssm_scan_cuda's y (pass 2 on the CPU
+    returns a new tensor, on the card it rewrites its input)."""
+    ins = [torch.from_numpy(x) for x in _decay_inputs(2, 96, 3, 16, 32, 7, "slow")]
+    u, a, b, c = ins
+    states, acum = tssd.ssd_chunk_states_cuda(u, a, b, chunk=32)
+    entering = tssd.ssd_pass_states_cuda(states, acum, chunk=32)
+    got = tssd.ssd_chunk_outputs_cuda(u, b, c, entering, acum, chunk=32)
+    np.testing.assert_allclose(got.numpy(), ssm_scan_cuda(*ins, chunk=32).numpy(), **TOL)
+    with pytest.raises(ValueError, match="does not match"):
+        tssd.ssd_pass_states_cuda(states, acum[:, :, :64], chunk=32)
+
+
+@pytest.mark.parametrize("dtype,p,n,want", [
+    (torch.bfloat16, 64, 64, True), (torch.float16, 16, 128, True), (torch.bfloat16, 80, 48, True),
+    (torch.float32, 64, 64, False), (torch.bfloat16, 192, 16, False),
+    (torch.bfloat16, 64, 300, False), (torch.bfloat16, 8, 4, False),
+    (torch.float16, 64, 24, False), (torch.bfloat16, 144, 64, False),
+])
+def test_tc_route_takes_16_bit_widths_up_to_128(dtype, p, n, want):
+    """bf16/fp16 with P and N multiples of 16 up to 128 go to the wgmma
+    kernel; fp32 and every other width stay on the SIMT one."""
+    assert tssd.tc_route(dtype, p, n) is want

@@ -21,6 +21,16 @@ Phases, in order; any failure exits non-zero before the final line:
    instance (fp32, bf16, fp16, int8, fp8 and the 8-bit B transpose) must
    launch, no record may error or be skipped, and the measured ladder at the
    top size is printed beside the datasheet's;
+4c. the paper's other tables: ``bench run instr bandwidth axpy memhier
+   scheduler atomics throttle --full`` (every variant) through the CLI
+   function, counted the same way and per registered benchmark: op_latency,
+   stream_reduce, axpy and pchase must launch from the plain suites and the
+   ``[cuda]`` variants, the ``[torch]`` ones launch nothing, and no record
+   may error or be skipped; Tab 4.1, the memhier levels, stream GB/s, the
+   atomics rates and the scheduler ratios are printed; the pointer chase is
+   walked at 128 and 256 MiB, 2^21 steps, past the 50 MB L2; then a
+   ``--quick`` run of every ported suite must PASS ``compare`` against
+   ``benchmarks/baselines_torch/``, and FAIL with one latency record doubled;
 5. ``probe_block_shape_bandwidth`` (the Ch. 1 axpy experiment), counted the
    same way, and the access-width sweep of Fig 1.1 at an HBM-sized array,
    each width counted on its own (phase 3 times the same sweep beside
@@ -31,7 +41,9 @@ Phases, in order; any failure exits non-zero before the final line:
    through ``build_model(cfg).prefill`` / ``decode_step``: 4 prompts of 1000
    tokens, 32 greedy steps, then one prompt of 2048; flash_attention must
    launch once per layer per prefill; the same requests through the plain
-   ``attn_impl="blockwise"`` path are the reference;
+   ``attn_impl="blockwise"`` path are the reference; the plain prefill is
+   counted once (``perfmodel.extract_costs``) and rooflined against the
+   H100 at bf16, and the bound's share of the kernel path's prefill printed;
 8. the Zamba2 hybrid LM at zamba2-7b's full width and depth (81 Mamba2
    layers, 14 shared-attention calls at hd 112), ``ssm_impl="pallas"`` and
    ``attn_impl="pallas"``, through ``build_model(cfg).loss_fn`` (81 ssm_scan
@@ -41,7 +53,8 @@ Phases, in order; any failure exits non-zero before the final line:
    through the plain path (``ssm_impl="xla"``, ``attn_impl="blockwise"``)
    are the reference; then one forward under ``kernel_policy(autotune=True)``
    at the chunk the autotuner picks for the H100 (512), which must reach the
-   ssm_scan kernel at that chunk and agree with the chunk-256 forward;
+   ssm_scan kernel at that chunk and agree with the chunk-256 forward; the
+   plain forward is rooflined as in phase 7;
 9. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
    ``{"ok": true, "device": ...}`` line.
 
@@ -103,6 +116,9 @@ SSM_ROW_RTOL = 5e-3
 # 2.621e-3 at chunk 512 on an H100, above the 2.5e-3 the rule above was set
 # from: twice the larger
 SSM_SLOW_ROW_RTOL = 2 * 2.621e-3
+# fp16 inputs on the SIMT route (an fp32 state, as the reference's): one
+# rounding of y to fp16, relative to max |y|, the card tests' fp16 limit
+SSM_FP16_RTOL = 2e-3
 # matmul's fp32 outputs, each row against the plain version's fp32 output:
 # 16-bit inputs differ by the sum order (a few 1e-6 at K 4096); fp8 by the
 # tensor cores' ~14-bit accumulation within each 128 of K (~1e-4, with the
@@ -113,6 +129,21 @@ MATMUL_F32_ROW_RTOL = {"bfloat16": 1e-5, "float16": 1e-5, "float8_e4m3fn": 5e-4}
 MATMUL_SHAPES = ((2048, 2048, 2048), (4096, 4096, 4096), (300, 200, 100))
 FLASH_MODEL_SHAPES = {"gemma-2b": (8, 1, 256), "zamba2-7b": (32, 32, 112)}  # H, Hkv, hd
 MEMBW_SHAPE = (65536, 512)  # 128 MiB of fp32: the probes' largest footprint
+# phase 4c: the paper's other suites, the kernels each registered variant must
+# launch (exactly these; the [torch] variants and the rest launch none)
+PAPER_SUITES = ("instr", "bandwidth", "axpy", "memhier", "scheduler", "atomics", "throttle")
+SUITE_KERNELS = {
+    "instr": {"op_latency"}, "bandwidth": {"stream_reduce", "axpy"},
+    "bandwidth[cuda]": {"stream_reduce"}, "axpy": {"axpy"}, "axpy[cuda]": {"axpy"},
+    "memhier": {"pchase"}, "memhier[cuda]": {"pchase"}, "scheduler": {"stream_reduce"},
+    "scheduler[cuda]": {"stream_reduce"},
+}
+PORTED_SUITES = ("dissect", "gemm", *PAPER_SUITES)  # "gemm" takes gemm_lp and the variants
+BASELINES = os.path.join(ROOT, "benchmarks", "baselines_torch")
+GATE_PROBE = "oplat_fma.f32"  # the measured latency record doubled to show the gate fails
+# the pointer chase past the 50 MB L2: footprints and steps (2^21 steps touch
+# most of the 128 MiB array's 1 M 128-byte lines)
+HBM_WALK_BYTES, HBM_WALK_STEPS = (128 << 20, 256 << 20), 1 << 21
 AXPY_SWEEP_SHAPE = (32768, 2048)  # Fig 1.1's sweep: 256 MiB of fp32 an array
 
 
@@ -166,7 +197,7 @@ def check_rows(name, got, want, limit) -> float:
 def kernel_checks(torch, dev) -> dict:
     """Phase 3: each kernel against its plain version at main-path shapes."""
     from repro_torch import hw
-    from repro_torch.core.pchase import single_cycle_permutation
+    from repro_torch.core.pchase import single_cycle_successors
     from repro_torch.kernels import ref
     from repro_torch.kernels.matmul import matmul_cuda
     from repro_torch.kernels.membw import stream_reduce
@@ -178,8 +209,9 @@ def kernel_checks(torch, dev) -> dict:
     # pchase: the largest full-mode footprint (128 MiB, HBM-resident), full-mode steps
     n, steps = 1 << 25, 1 << 17
     t0 = time.perf_counter()
-    perm = torch.from_numpy(single_cycle_permutation(n, 0)).to(dev)
-    print(f"host: Sattolo permutation of {n} entries in {time.perf_counter() - t0:.1f} s")
+    perm = single_cycle_successors(n, 0, dev)
+    torch.cuda.synchronize()
+    print(f"Sattolo permutation of {n} entries on the card in {time.perf_counter() - t0:.1f} s")
     got = pchase_cuda(perm, steps)
     torch.cuda.synchronize()
     plain = pchase_torch(perm, steps)
@@ -648,6 +680,19 @@ def ssm_inputs(torch, dev, gen, dtype, steps=SSM_SHAPE[1], shift=0.0):
     return u, a, b, c
 
 
+def ssm_fp16_state_inputs(torch, dev, gen):
+    """fp16 inputs at SSM_SHAPE whose state passes fp16's 65,504 while y stays
+    inside it: u ~ 100, B ~ 30, C ~ 1e-3 (each within 10 %) at a slow,
+    constant decay of 0.01 a step (the state settles near 3e5, y near 2e4)."""
+    bsz, s, h, p, n = SSM_SHAPE
+
+    def around(v, shape):
+        return (v * (1 + 0.1 * torch.randn(shape, generator=gen, device=dev))).half()
+
+    u, b, c = around(100.0, (bsz, s, h, p)), around(30.0, (bsz, s, n)), around(1e-3, (bsz, s, n))
+    return u, torch.full((bsz, s, h), -0.01, device=dev), b, c
+
+
 def ssm_plain(scan, *args):
     """A plain scan of kernels.ref on the model layout's (u, a_log, b, c)."""
     from repro_torch.kernels import _util
@@ -722,8 +767,10 @@ def ssm_checks(torch, dev, gen) -> dict:
     256 and 512 (the autotuner's pick) within SSM_SLOW_ROW_RTOL, and each
     pass against its plain version.  fp32 on the SIMT route (1e-4: sum
     order) against the chunked plain version at both decays, at chunk 512
-    too, and at S 256 against the sequential recurrence.  Tolerances but the
-    row checks' are relative to max |y|."""
+    too, and at S 256 against the sequential recurrence.  fp16 on the SIMT
+    route with a state past fp16's range and y inside it, against the fp32
+    plain version (SSM_FP16_RTOL), and timed.  Tolerances but the row
+    checks' are relative to max |y|."""
     from repro_torch.kernels import _util, ref
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
@@ -756,9 +803,17 @@ def ssm_checks(torch, dev, gen) -> dict:
     row_err = check_rows("ssm_scan bf16", got, want32, SSM_ROW_RTOL)
     row_rounding = row_rel_err(want32.bfloat16(), want32)
     del got, want, want32
+    # fp16 keeps an fp32 state, as the reference does: the SIMT route
+    ins16 = ssm_fp16_state_inputs(torch, dev, gen)
+    want16 = ssm_plain(ref.ssm_scan_chunked_ref, *(t.float() for t in ins16), chunk)
+    err16 = check_close("ssm_scan fp16 with its state past 65,504",
+                        ssm_scan_cuda(*ins16, chunk=chunk).float(), want16, SSM_FP16_RTOL, 0.0)
+    y16_max = float(want16.abs().max())
+    del want16
     routes = _util.route_counts()["ssm_scan"]
-    if routes != {"simt": 4, "wgmma": 3}:
-        raise AssertionError(f"ssm_scan: routes {routes}; fp32 on simt (4), bf16 on wgmma (3)")
+    if routes != {"simt": 5, "wgmma": 3}:
+        raise AssertionError(f"ssm_scan: routes {routes}; fp32 and fp16 on simt (5), bf16 on "
+                             "wgmma (3)")
     passes = {ch: ssm_pass_checks(torch, u, a, b, c, ch) for ch in (chunk, 512)}
     print(f"check ssm_scan bf16 at a slow decay: {slow}; the wgmma route's passes (errors, "
           f"ms): {passes}", flush=True)
@@ -773,8 +828,9 @@ def ssm_checks(torch, dev, gen) -> dict:
                      f"{SSM_ROW_RTOL} of the fp32 plain output; at a slow decay rows within "
                      f"{SSM_SLOW_ROW_RTOL} at chunks 256 and 512; fp32 1e-4 (also at a slow "
                      "decay, there at chunk 512 too, and at S 256 against the sequential "
-                     "recurrence); but the row checks, relative to max |y|",
-        "ssm_routes": {"bfloat16": "wgmma", "float32": "simt"},
+                     f"recurrence); fp16 with its state past 65,504 (SIMT) {SSM_FP16_RTOL}; "
+                     "but the row checks, relative to max |y|",
+        "ssm_routes": {"bfloat16": "wgmma", "float32": "simt", "float16": "simt"},
         "max_abs_err": err, "row_rel_err": row_err, "row_rel_err_rounding": row_rounding,
         "row_rel_err_slow_decay": slow[256]["row_rel_err"],
         "row_rel_err_slow_decay_chunk512": slow[512]["row_rel_err"],
@@ -785,6 +841,8 @@ def ssm_checks(torch, dev, gen) -> dict:
         "ms": time_ms(torch, lambda: ssm_scan_cuda(u, a, b, c, chunk=chunk), 10),
         "ms_chunk512": time_ms(torch, lambda: ssm_scan_cuda(u, a, b, c, chunk=512), 10),
         "ms_passes": passes[chunk]["ms"], "ms_passes_chunk512": passes[512]["ms"],
+        "max_abs_err_state_past_65504_fp16": err16, "max_abs_y_fp16": y16_max,
+        "ms_fp16": time_ms(torch, lambda: ssm_scan_cuda(*ins16, chunk=chunk), 10),
         "plain_ms": time_ms(torch, lambda: ref.ssm_scan_chunked_ref(*flat, chunk), 3),
         "library_ms": None,  # no single PyTorch call computes this scan
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -896,7 +954,7 @@ def main_path(torch, dev) -> tuple:
     cmp = hw.compare("measured-host", "h100")
     print("compare(measured-host, h100): " + json.dumps(
         {k: cmp[k] for k in ("peak_ratio", "main_memory_Bps_ratio", "levels")}), flush=True)
-    return counts, seconds, dict(zip(ops["x"], ops["y"]))
+    return counts, seconds, dict(zip(ops["x"], ops["y"])), rep.detected_levels
 
 
 def gemm_path(torch, dev) -> dict:
@@ -950,6 +1008,109 @@ def gemm_path(torch, dev) -> dict:
     print("gemm_lp GFLOP/s: " + json.dumps(
         {k: v for k, v in recs.items() if k.startswith(("gemm_lp_", "gemm_dispatch_"))
          and ":" in k}), flush=True)
+    return counts
+
+
+def suites_path(torch, dev, tab41: dict, levels) -> dict:
+    """Phase 4c: the paper's other tables, ``bench run instr bandwidth axpy
+    memhier scheduler atomics throttle --full`` through the CLI function with
+    every variant, the launch counts zeroed before and read after, and each
+    registered benchmark's own launches read around its run: each must
+    launch exactly its kernels of SUITE_KERNELS (the [torch] variants none),
+    and no record may error or be skipped.  Prints Tab 4.1 beside phase 4's,
+    the memhier levels, stream GB/s per footprint, the atomics rates and the
+    scheduler ratios; walks the pointer chase past the L2 (HBM_WALK_*) beside
+    phase 4's L2 plateau; then gates a ``--quick`` run of every ported suite
+    against benchmarks/baselines_torch (must PASS) and the same result with
+    GATE_PROBE doubled (must FAIL)."""
+    from repro_torch.bench import cli
+    from repro_torch.core import probes, registry
+    from repro_torch.kernels import _util
+
+    per_suite, run = {}, registry.BenchSpec.run
+
+    def counted(spec, *args, **kw):
+        before = _util.launch_counts()
+        try:
+            return run(spec, *args, **kw)
+        finally:
+            after = _util.launch_counts()
+            per_suite[spec.name] = {k for k in after if after[k] != before.get(k, 0)}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "suites.json")
+        t0 = time.perf_counter()
+        registry.BenchSpec.run = counted
+        try:
+            _util.reset_launch_counts()
+            rc = cli.main(["run", *PAPER_SUITES, "--full", "--out", out])
+            counts = _util.launch_counts()
+        finally:
+            registry.BenchSpec.run = run
+        seconds = time.perf_counter() - t0
+        with open(out) as f:
+            result = json.load(f)
+        print(f"{' '.join(PAPER_SUITES)} --full: {seconds:.1f} s; launches {counts}; per "
+              f"benchmark {json.dumps({k: sorted(v) for k, v in per_suite.items()})}", flush=True)
+        if rc != 0 or result["errors"]:
+            raise RuntimeError(f"bench run {' '.join(PAPER_SUITES)} --full exited {rc}: "
+                               f"{result['errors']}")
+        wrong = {k: sorted(v) for k, v in per_suite.items() if v != SUITE_KERNELS.get(k, set())}
+        if wrong or set(per_suite) < set(SUITE_KERNELS):
+            raise AssertionError(f"suites launched other kernels than {SUITE_KERNELS}: {wrong}")
+        recs = {r["name"]: r for r in result["records"]}
+        bad = [k for k, r in recs.items() if "skipped" in k or not math.isfinite(r["value"])]
+        if bad or result["env"]["device_kind"] != torch.cuda.get_device_name(dev):
+            raise AssertionError(f"suites: skipped or not finite {bad}, env {result['env']}")
+
+        def table(prefix, key=lambda r: r["value"]):
+            """The measured records under ``prefix`` (the reference's modeled
+            TPU rows are not the card's), keyed by the rest of the name."""
+            return {k[len(prefix):]: key(r) for k, r in recs.items()
+                    if k.startswith(prefix) and r["measured"] and "_tpu_" not in k}
+
+        tab = table("oplat_")
+        print("Tab 4.1, ns per dependent op (instr --full, phase 4 in brackets): " + ", ".join(
+            f"{k}: {v:.4g} [{tab41[k]:.4g}]" if k in tab41 else f"{k}: {v:.4g}"
+            for k, v in tab.items()), flush=True)
+        print("memhier levels (latency ns, capacity bytes): " + json.dumps(
+            table("pchase_host_level", lambda r: (r["value"], r["metrics"]["capacity_bytes"]))))
+        print("pchase ns/load by footprint: " + json.dumps(
+            {k: v for k, v in table("pchase_host_").items() if k.endswith("KiB")}
+            | {"dispatch": table("pchase_dispatch_")}))
+        print("stream GB/s by footprint: " + json.dumps(table("streambw_host_")))
+        print("stream GB/s through the dispatch API: " + json.dumps(table("streambw_dispatch_")))
+        print("axpy GB/s: " + json.dumps(table("axpy_")))
+        print("atomics Mupdates/s by collisions: " + json.dumps(table("scatter_contention_")))
+        print("scheduler ratio to one unit: " + json.dumps(
+            table("grid_occupancy_", lambda r: r["metrics"]["ratio_vs_1program"])), flush=True)
+
+        _util.reset_launch_counts()
+        walk = probes.probe_pointer_chase(HBM_WALK_BYTES, steps=HBM_WALK_STEPS, device=dev)
+        add_counts(counts, _util.launch_counts())
+        l2 = max(lat for lat, _ in levels) if levels else float("nan")
+        print(f"pointer chase past the L2, {HBM_WALK_STEPS} steps, ns/load: " + json.dumps(
+            dict(zip(walk.x, walk.y))) + f"; phase 4's slowest plateau {l2:.4g} ns", flush=True)
+        if walk.meta["backend"] != "cuda" or not all(math.isfinite(y) and y > 0 for y in walk.y):
+            raise AssertionError(f"HBM walk: {walk}")
+
+        quick = os.path.join(tmp, "quick.json")
+        t0 = time.perf_counter()
+        if cli.main(["run", *PORTED_SUITES, "--quick", "--out", quick]) != 0:
+            raise RuntimeError("bench run --quick of the ported suites failed")
+        gate = cli.main(["compare", quick, BASELINES])
+        with open(quick) as f:
+            doubled = json.load(f)
+        (probe,) = [r for r in doubled["records"] if r["name"] == GATE_PROBE]
+        probe["value"] *= 2
+        with open(quick, "w") as f:
+            json.dump(doubled, f)
+        gate_doubled = cli.main(["compare", quick, BASELINES])
+        print(f"gate: --quick run and compare in {time.perf_counter() - t0:.1f} s; against "
+              f"{os.path.relpath(BASELINES, ROOT)} exit {gate} (0 = PASS), with {GATE_PROBE} "
+              f"doubled exit {gate_doubled} (1 = FAIL)", flush=True)
+        if gate != 0 or gate_doubled != 1:
+            raise AssertionError(f"gate: compare exited {gate}, doubled {gate_doubled}")
     return counts
 
 
@@ -1057,6 +1218,10 @@ def lm_path(torch, dev) -> dict:
         run = serve(model)
         counts = _util.launch_counts()
         plain = serve(plain_model)
+        roof = roofline_share(f"{cfg.name} prefill {LM_BATCH} x {LM_PROMPT} (plain path counted)",
+                              plain_model.prefill,
+                              (params, {"tokens": prompts}, LM_PROMPT + LM_STEPS), n_params,
+                              LM_BATCH * LM_PROMPT, run["prefill_s"])
     if counts != {"flash_attention": 2 * cfg.n_layers}:
         raise AssertionError(f"lm: launches {counts}, expected flash_attention "
                              f"{cfg.n_layers} per prefill, 2 prefills")
@@ -1080,7 +1245,7 @@ def lm_path(torch, dev) -> dict:
         "long_prefill_tok_s": LM_LONG / run["long_prefill_s"],
         "rel_err_last_logits": rel["last"], "rel_err_long_last_logits": rel["long_last"],
         "greedy_equal_share": same, "first_greedy_equal_share": first_same,
-        "launches": counts,
+        "launches": counts, "prefill_bound_share": roof["bound_share_of_kernel_path"],
     }
     print("lm: " + json.dumps(res), flush=True)
     if max(rel.values()) > 0.1:
@@ -1201,6 +1366,9 @@ def zamba_path(torch, dev) -> dict:
         run_out, counts = run(model, cfg)
         kernel_routes = dict(routes)
         plain, plain_counts = run(plain_model, plain_cfg)
+        roof = roofline_share(f"{cfg.name} forward {LM_BATCH} x {LM_PROMPT} (plain path counted)",
+                              mamba.zamba_forward, (params, prompts, plain_cfg),
+                              count_params(params), LM_BATCH * LM_PROMPT, run_out["forward_s"])
         auto = autotuned()
     want_routes = {"ssm_scan": {"wgmma": cfg.n_layers}}
     for key in ("loss_fn", "forward"):
@@ -1243,6 +1411,7 @@ def zamba_path(torch, dev) -> dict:
         "greedy_equal_share": float((run_out["tokens"] == plain["tokens"]).float().mean()),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         **agree, "launches": counts, "ssm_routes": kernel_routes["forward"],
+        "forward_bound_share": roof["bound_share_of_kernel_path"],
         "phase_s": time.perf_counter() - phase_start,
     }
     print("zamba: " + json.dumps(res), flush=True)
@@ -1269,6 +1438,28 @@ def zamba_path(torch, dev) -> dict:
     for c in counts.values():
         add_counts(total, c)
     return total
+
+
+def roofline_share(name, fn, args, n_params, tokens, measured_s) -> dict:
+    """Count ``fn(*args)`` once, untimed (``perfmodel.extract_costs``: ATen
+    FLOPs and bytes, so on the plain path, whose ops it sees), roofline it
+    against the H100 SXM at bf16 on one card, and divide the bound into the
+    kernel path's measured time."""
+    from repro_torch.perfmodel import CollectiveStats, extract_costs, roofline
+
+    costs = extract_costs(fn, *args)
+    terms = roofline(costs, CollectiveStats(), chips=1, kind="infer", n_params_active=n_params,
+                     tokens=tokens, hw="nvidia-h100-sxm", dtype="bfloat16")
+    bound_s = max(terms.compute_s, terms.memory_s, terms.collective_s)
+    res = {"flops": costs.flops_per_device, "bytes": costs.bytes_per_device,
+           "compute_s": terms.compute_s, "memory_s": terms.memory_s,
+           "collective_s": terms.collective_s, "dominant": terms.dominant,
+           "model_flops": terms.model_flops, "roofline_fraction": terms.roofline_fraction,
+           "kernel_path_s": measured_s, "bound_share_of_kernel_path": bound_s / measured_s}
+    print(f"roofline {name}: {json.dumps(res)}", flush=True)
+    if not (bound_s > 0 and math.isfinite(res["bound_share_of_kernel_path"])):
+        raise AssertionError(f"roofline {name}: {res}")
+    return res
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -1300,8 +1491,9 @@ def main() -> int:
 
     rows = kernel_checks(torch, dev)
     torch.cuda.empty_cache()
-    counts, _, rows["op_latency"]["ns_per_op"] = main_path(torch, dev)
+    counts, _, rows["op_latency"]["ns_per_op"], levels = main_path(torch, dev)
     add_counts(counts, gemm_path(torch, dev))
+    add_counts(counts, suites_path(torch, dev, rows["op_latency"]["ns_per_op"], levels))
     probe_counts, sweep = axpy_path(torch, dev)
     add_counts(counts, probe_counts)
     for r in rows["axpy"]["sweep_256mib"]:
@@ -1327,7 +1519,7 @@ def main() -> int:
         entry.update({k: v for k, v in r.items()
                       if k in ("latency_bound_ms", "tflops", "row_rel_err", "sweep_256mib",
                                "transpose_ms", "ns_per_op", "ssm_routes", "ms_passes")
-                      or k.endswith(("_hd112", "_hd512", "_4096", "_chunk512"))})
+                      or k.endswith(("_hd112", "_hd512", "_4096", "_chunk512", "_fp16"))})
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

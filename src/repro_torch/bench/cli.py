@@ -1,24 +1,33 @@
-"""``python -m repro_torch.bench`` — run | list.
+"""``python -m repro_torch.bench`` — run | list | compare | baseline | trend.
 
     run       execute registered benchmarks, write schema-versioned JSON
     list      show registered benchmarks with paper refs and sweep grids
+    compare   gate a results file against the checked-in baselines
+    baseline  (re)generate baseline files from a results file
+    trend     aggregate per-commit BENCH_<sha>.json artifacts into a
+              perf-over-time report (markdown or JSON)
 
 ``run`` measures on the card unless ``--device cpu`` is given; with no card
-visible it exits 2 instead of measuring the host.  It is non-zero if any
-benchmark errored.  ``compare``, ``baseline`` and ``trend`` of
-``repro.bench`` are still to be ported.
+visible it exits 2 instead of measuring the host.  Exit codes: ``run`` is
+non-zero if any benchmark errored; ``compare`` is non-zero if the gate fails
+(unless ``--warn-only``); ``trend`` is non-zero only on input errors (it
+reports, it does not gate); a malformed or missing input file exits 2.
+``run --guard`` of ``repro.bench`` waits for the numerics guard's port.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+from pathlib import Path
 
 from repro_torch.core import registry
 from repro_torch.core.timing import NoCudaDeviceError
 
+from . import baseline as bl
 from . import runner
-from .schema import SchemaError
+from . import trend as trend_mod
+from .schema import BenchResult, SchemaError
 
 
 def _cmd_list(args) -> int:
@@ -81,6 +90,54 @@ def _cmd_run(args) -> int:
     return 1 if result.errors else 0
 
 
+def _cmd_compare(args) -> int:
+    report = bl.compare_files(
+        args.results, args.baselines, threshold_scale=args.threshold_scale
+    )
+    if args.json:
+        print(json.dumps(report.to_dict(), indent=2))
+    else:
+        print(report.format())
+    if args.warn_only:
+        return 0
+    return 0 if report.passed else 1
+
+
+def _cmd_baseline(args) -> int:
+    result = BenchResult.load(args.results)
+    paths = bl.write_baselines(result, args.out_dir)
+    for p in paths:
+        print(f"wrote {p}")
+    return 0
+
+
+def _cmd_trend(args) -> int:
+    files = trend_mod.discover(args.paths)
+    if not files:
+        print(
+            f"error: no BENCH_*.json files under {' '.join(args.paths)}",
+            file=sys.stderr,
+        )
+        return 2
+    commits = trend_mod.load_commits(files)
+    report = trend_mod.build_trend(commits, benchmarks=args.benchmark)
+    rendered = (
+        trend_mod.format_json(report) if args.json
+        else trend_mod.format_markdown(report)
+    )
+    if args.out:
+        Path(args.out).write_text(
+            rendered if rendered.endswith("\n") else rendered + "\n"
+        )
+        print(
+            f"wrote {args.out}: {len(report['series'])} series over "
+            f"{len(report['commits'])} commit(s)"
+        )
+    else:
+        print(rendered, end="" if rendered.endswith("\n") else "\n")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.bench", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -107,6 +164,34 @@ def main(argv=None) -> int:
     )
     p.add_argument("-v", "--verbose", action="store_true")
     p.set_defaults(fn=_cmd_run)
+
+    p = sub.add_parser("compare", help="gate results against baselines")
+    p.add_argument("results", help="results JSON from `run --out`")
+    p.add_argument("baselines", help="baseline directory (benchmarks/baselines_torch/)")
+    p.add_argument("--threshold-scale", type=float, default=1.0)
+    p.add_argument("--warn-only", action="store_true", help="report but exit 0")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=_cmd_compare)
+
+    p = sub.add_parser("baseline", help="write baseline files from results")
+    p.add_argument("results")
+    p.add_argument("--out-dir", default="benchmarks/baselines_torch")
+    p.set_defaults(fn=_cmd_baseline)
+
+    p = sub.add_parser(
+        "trend", help="aggregate per-commit BENCH_<sha>.json into a report"
+    )
+    p.add_argument(
+        "paths", nargs="+",
+        help="directories (scanned for BENCH_*.json) and/or result files",
+    )
+    p.add_argument(
+        "--benchmark", nargs="*",
+        help="benchmark/record-name prefixes to include (default: all)",
+    )
+    p.add_argument("--json", action="store_true", help="emit JSON instead of markdown")
+    p.add_argument("--out", help="write the report to this path")
+    p.set_defaults(fn=_cmd_trend)
 
     args = ap.parse_args(argv)
     try:

@@ -17,13 +17,14 @@ from __future__ import annotations
 
 import json
 import time
-from dataclasses import asdict, dataclass, field
+from dataclasses import asdict, dataclass, field, fields
 from pathlib import Path
 from typing import Union
 
 from repro_torch.core.serialization import (  # noqa: F401  (re-exported schema surface)
     SCHEMA_VERSION,
     EnvFingerprint,
+    finite,
     probe_to_dict,
 )
 
@@ -112,7 +113,7 @@ class BenchResult:
         validate_result(d)
         return BenchResult(
             mode=d["mode"],
-            env=EnvFingerprint(**d["env"]),
+            env=env_from_dict(d["env"]),
             records=[BenchRecord(**r) for r in d["records"]],
             errors=dict(d.get("errors", {})),
             timings=dict(d.get("timings", {})),
@@ -127,6 +128,24 @@ class BenchResult:
     @staticmethod
     def load(path) -> "BenchResult":
         return BenchResult.from_json(Path(path).read_text())
+
+
+def env_from_dict(env: dict) -> EnvFingerprint:
+    """The env of a results document: the port's fingerprint, or the one
+    ``repro.bench`` writes (its JAX versions have no field here and are
+    dropped, the torch and CUDA versions left blank), so both packages' gates
+    and trends read a results file of either."""
+    if set(env) == _ENV_KEYS:
+        return EnvFingerprint(**env)
+    if set(env) == _REFERENCE_ENV_KEYS:
+        return EnvFingerprint(torch_version="", cuda_version="",
+                              **{k: env[k] for k in _ENV_KEYS & _REFERENCE_ENV_KEYS})
+    raise SchemaError(f"env keys {sorted(env)} are neither the port's nor repro's")
+
+
+_ENV_KEYS = {f.name for f in fields(EnvFingerprint)}
+_REFERENCE_ENV_KEYS = {"jax_version", "jaxlib_version", "backend", "device_kind",
+                       "device_count", "platform", "python_version"}
 
 
 # ---------------------------------------------------------------------------

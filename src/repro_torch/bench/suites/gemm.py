@@ -8,14 +8,13 @@ TPU v5e model and the paper's T4 peaks, both from the port's spec database,
 as the reference's do."""
 from __future__ import annotations
 
-import torch
-
 from repro_torch.core import probes
 from repro_torch.core.autotune import choose_matmul_tiles
 from repro_torch.core.registry import register
 from repro_torch.hw import T4_PAPER, TPU_V5E
 
 from ..schema import BenchRecord
+from ._skip import skipped_on_cpu
 
 
 @register(
@@ -91,18 +90,9 @@ def bench_gemm_backend(sizes=(256, 512), backend="torch", device="cuda") -> list
     ``cuda`` variant measures nothing and says so in a ``gemm_skipped`` row."""
     from repro_torch.kernels.api import kernel_policy
 
-    if backend == "cuda" and torch.device(device).type != "cuda":
-        return [
-            BenchRecord(
-                name="gemm_skipped",
-                benchmark="gemm",
-                x=None,
-                value=float(len(sizes)),
-                unit="points",
-                better="info",
-                info=f"the cuda kernels need the card; not run on {device}",
-            )
-        ]
+    skipped = skipped_on_cpu("gemm", len(sizes), backend, device)
+    if skipped:
+        return skipped
     with kernel_policy(autotune=True):
         res = probes.probe_matmul_throughput(
             sizes=sizes, dtypes=("float32",), backend=backend, device=device

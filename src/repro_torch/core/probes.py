@@ -53,7 +53,7 @@ def probe_pointer_chase(
     lats = []
     for sz in sizes_bytes:
         n = max(sz // 4, 8)
-        perm = torch.from_numpy(pc.single_cycle_permutation(n, seed)).to(dev)
+        perm = pc.single_cycle_successors(n, seed, dev)
         fn = api.pchase.bound(perm, steps, backend=be)
         t = time_fn(fn, perm, steps, warmup=2, reps=5)
         lats.append(t.min_s / steps * 1e9)

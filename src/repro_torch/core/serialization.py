@@ -10,6 +10,7 @@ from __future__ import annotations
 import platform
 import sys
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -52,3 +53,11 @@ def probe_to_dict(res) -> dict:
     """Serialize a core.probes.ProbeResult into the shared probe layout."""
     return {"x": list(res.x), "y": list(res.y), "unit": res.unit, "meta": dict(res.meta)}
 
+
+
+def finite(v: float, fallback: Optional[float] = 0.0) -> float:
+    """JSON-safe float (strict JSON has no Infinity/NaN)."""
+    v = float(v)
+    if v != v or v in (float("inf"), float("-inf")):
+        return float(fallback)
+    return v

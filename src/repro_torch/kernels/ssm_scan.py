@@ -3,7 +3,7 @@
 The kernels (``csrc/ssm_scan.cu``) replace the Pallas ``_ssd_kernel`` of
 ``repro/kernels/ssm_scan.py``.  :func:`tc_route` picks one:
 
-* ``wgmma`` (bf16/fp16 with P and N multiples of 16 up to 128, any chunk):
+* ``wgmma`` (bf16 with P and N multiples of 16 up to 128, any chunk):
   the state-passing form of SSD on the tensor cores, three launches.  Pass 1
   writes each chunk's own state and the cumulative decay into fp32 scratch
   the wrapper allocates, pass 2 turns the chunk states into the states
@@ -11,12 +11,16 @@ The kernels (``csrc/ssm_scan.cu``) replace the Pallas ``_ssd_kernel`` of
   64-row tile of a chunk.  Each pass has a plain version in
   :mod:`~repro_torch.kernels.ref` (``ssd_chunk_states``, ``ssd_pass_states``,
   ``ssd_chunk_outputs``) and a wrapper of its own here, for the card's checks.
-* ``simt`` (fp32, and P or N past 128 or off the multiples of 16): one
+* ``simt`` (fp32, fp16, and P or N past 128 or off the multiples of 16): one
   (batch, head, slice of up to 128 columns of P) per block on the FP32
   pipes, its slice of the state carried across the chunks in shared memory;
   P > 128 splits over the grid, N > 128 runs the scan once per slab of 128
   and sums y in an fp32 scratch.  Tensor cores keep neither fp32's precision
-  nor widths off 16 bytes.
+  nor widths off 16 bytes.  fp16 stays here too: the wgmma route feeds the
+  state h and the weights W to the tensor cores as 16-bit hi + lo pairs of
+  the input type, and fp16's range ends at 65,504, where the reference's
+  fp32 state goes on; bf16 has fp32's range.  The passes' own wrappers
+  below still take fp16, for the card's checks of each pass.
 
 The launch counts as one ``ssm_scan`` launch whatever the route;
 ``_util.route_counts()["ssm_scan"]`` says which route it took.
@@ -31,7 +35,8 @@ from . import _util, ref
 
 DIM_TILE = 128  # columns of P a block, and values of N a slab (csrc kDimTile)
 ROW_TILE = 64  # rows of a tile: acum holds ceil(chunk / 64) * 64 entries
-TC_DTYPES = (torch.bfloat16, torch.float16)
+TC_DTYPES = (torch.bfloat16,)  # the scan's wgmma route
+PASS_DTYPES = (torch.bfloat16, torch.float16)  # what the pass kernels compute
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # dtype, u, a, b, c, y, then two scratch pointers, batch, S, H, P, N, chunk: both routes
@@ -41,11 +46,16 @@ _PASS_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _I)
 _OUTPUTS_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I)
 
 
+def _tc_widths(p: int, n: int) -> bool:
+    """P and N multiples of 16 up to 128 (wgmma's 16-byte steps, the kernels'
+    64- and 128-wide instances)."""
+    return all(0 < d <= DIM_TILE and d % 16 == 0 for d in (p, n))
+
+
 def tc_route(dtype: torch.dtype, p: int, n: int) -> bool:
-    """Whether the ``wgmma`` route takes these operands: bf16/fp16 with P and
-    N multiples of 16 up to 128 (wgmma's 16-byte steps, the kernel's 64- and
-    128-wide instances)."""
-    return dtype in TC_DTYPES and all(0 < d <= DIM_TILE and d % 16 == 0 for d in (p, n))
+    """Whether the scan takes the ``wgmma`` route for these operands: bf16
+    with P and N multiples of 16 up to 128."""
+    return dtype in TC_DTYPES and _tc_widths(p, n)
 
 
 def _check(u, a_shape, b, c, chunk):
@@ -139,8 +149,8 @@ def ssm_scan_cuda(u: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torc
 # the wgmma route's passes one at a time (the card's checks of each pass)
 # ---------------------------------------------------------------------------
 def _tc_only(u, n):
-    if not tc_route(u.dtype, u.shape[-1], n):
-        raise ValueError(f"the wgmma route takes bf16/fp16 with P, N multiples of 16 up to "
+    if u.dtype not in PASS_DTYPES or not _tc_widths(u.shape[-1], n):
+        raise ValueError(f"the wgmma passes take bf16/fp16 with P, N multiples of 16 up to "
                          f"{DIM_TILE}, got {u.dtype}, P {u.shape[-1]}, N {n}")
 
 
@@ -171,7 +181,7 @@ def ssd_pass_states_cuda(states, acum, *, chunk: int = 256):
         raise ValueError(f"acum {tuple(acum.shape)} does not match states {tuple(states.shape)}")
     if states.device.type == "cpu":
         return ref.ssd_pass_states(states, acum, chunk)[0]
-    if not tc_route(torch.bfloat16, p, n) or states.dtype != torch.float32:
+    if not _tc_widths(p, n) or states.dtype != torch.float32:
         raise ValueError(f"states must be fp32 with P, N multiples of 16 up to {DIM_TILE}")
     for name, t in (("states", states), ("acum", acum)):
         _util.check_cuda_operand(name, t)

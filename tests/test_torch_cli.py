@@ -44,7 +44,10 @@ def test_cli_run_dissect_cpu_writes_schema_v1(tmp_path):
 
 def test_cli_list_and_no_card_exit(tmp_path):
     proc = _bench("list", cwd=tmp_path)
-    assert proc.returncode == 0 and proc.stdout.startswith("dissect")
+    listed = [line.split()[0] for line in proc.stdout.splitlines()]
+    assert proc.returncode == 0 and listed == sorted(listed)
+    assert {"dissect", "instr", "atomics", "throttle", "bandwidth[cuda]", "memhier[torch]",
+            "gemm_lp[cuda]"} <= set(listed)
     if not torch.cuda.is_available():
         proc = _bench("run", "dissect", cwd=tmp_path)
         assert proc.returncode == 2 and "device='cpu'" in proc.stderr

@@ -342,8 +342,8 @@ def _ssm_route(dtype, p, n):
                                          (1, 100, 2, 8, 4), (1, 130, 1, 128, 128)])
 def test_ssm_scan_kernel(dev, dtype, tol, chunk, bsz, s, h, p, n, decay):
     """Against the chunked plain version on the same (padded) inputs; S is a
-    multiple of no chunk, so the op's wrapper pads.  bf16/fp16 take the
-    wgmma route but at P 8, N 4 (the SIMT kernel's, as fp32).  The slow
+    multiple of no chunk, so the op's wrapper pads.  bf16 takes the wgmma
+    route but at P 8, N 4 (the SIMT kernel's, as fp32 and fp16).  The slow
     decay is what makes the state carry and the far key tiles count."""
     u, a, b, c = _ssm_inputs(dev, dtype, bsz, s, h, p, n, seed=chunk + s, decay=decay)
     before = _util.launch_counts().get("ssm_scan", 0)
@@ -530,8 +530,9 @@ def test_ssm_scan_kernel_past_the_old_limits(dev, dtype, tol, bsz, s, h, p, n, c
     carry; at 12288 with P = N = 128 it no longer fits beside the tiles in
     shared memory and goes to the global scratch), P past 128 (split over
     the grid) and N past 128 (slabs summed in fp32), against the chunked
-    plain version at the slow decay.  bf16/fp16 at (1, 1024, 2, 64, 64), zamba2-7b's
-    P and N at the autotuner's chunk 512, and at P = N = 128 take the wgmma route."""
+    plain version at the slow decay.  bf16 at (1, 1024, 2, 64, 64), zamba2-7b's
+    P and N at the autotuner's chunk 512, and at P = N = 128 takes the wgmma
+    route; fp16 takes the SIMT one everywhere."""
     from repro_torch.kernels.ssm_scan import DIM_TILE
 
     if chunk == 12288:
@@ -599,11 +600,12 @@ def test_ssd_passes_against_their_plain_versions(dev, dtype, tol, bsz, s, h, p, 
 @pytest.mark.parametrize("dtype,p,n,route", [
     (torch.float32, 64, 64, "simt"), (torch.bfloat16, 192, 16, "simt"),
     (torch.bfloat16, 16, 300, "simt"), (torch.float16, 64, 24, "simt"),
-    (torch.bfloat16, 64, 64, "wgmma"), (torch.float16, 48, 128, "wgmma"),
+    (torch.bfloat16, 64, 64, "wgmma"), (torch.float16, 48, 128, "simt"),
 ])
 def test_ssm_scan_routes(dev, dtype, p, n, route):
-    """fp32, P past 128, N past 128 and N off the multiples of 16 stay on the
-    SIMT kernel; each call counts one ssm_scan launch and one of its route."""
+    """fp32, fp16, P past 128, N past 128 and N off the multiples of 16 stay
+    on the SIMT kernel; each call counts one ssm_scan launch and one of its
+    route."""
     u, a, b, c = _ssm_inputs(dev, dtype, 1, 256, 2, p, n, seed=p + n, decay="slow")
     _util.reset_launch_counts()
     got = tapi.ssm_scan(u, a, b, c, chunk=128)
@@ -613,6 +615,41 @@ def test_ssm_scan_routes(dev, dtype, p, n, route):
     want = ref.ssm_scan_chunked_ref(*_util.flatten_ssm(u, a, b, c), 128)
     want = _util.unflatten_heads(want, 1).float()
     tol = dict(_SSM_TOL)[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol * float(want.abs().max()))
+
+
+def fp16_state_case(device, bsz=1, s=1024, h=2, p=64, n=64):
+    """fp16 inputs whose SSD state passes fp16's 65,504 while y stays inside
+    it: u ~ 100, B ~ 30 and C ~ 1e-3 (each within 10 %, from numpy's seed 0,
+    so the same on any device) at a slow, constant decay of 0.01 a step.  The
+    state settles near 3e5, y near 2e4."""
+    rng = np.random.default_rng(0)
+
+    def around(v, shape):
+        x = v * (1 + 0.1 * rng.standard_normal(shape, dtype=np.float32))
+        return torch.from_numpy(x).to(device)
+
+    u = around(100.0, (bsz, s, h, p)).half()
+    b, c = around(30.0, (bsz, s, n)).half(), around(1e-3, (bsz, s, n)).half()
+    return u, torch.full((bsz, s, h), -0.01, device=device), b, c
+
+
+def test_ssm_scan_fp16_state_past_the_fp16_range(dev):
+    """The reference keeps the state in fp32 whatever the input type
+    (``repro/kernels/ssm_scan.py``, ``h_ref``); so must the kernel, when the
+    state passes 65,504 and y does not.  Within the fp16 limit of
+    ``_SSM_TOL`` of the fp32 plain version on the same fp16 inputs."""
+    chunk = 256
+    u, a, b, c = fp16_state_case(dev)
+    states, acum = ref.ssd_chunk_states(u.float(), a, b.float(), chunk)
+    entering, _ = ref.ssd_pass_states(states, acum, chunk)
+    want = ref.ssm_scan_chunked_ref(*_util.flatten_ssm(u.float(), a, b.float(), c.float()),
+                                    chunk)
+    want = _util.unflatten_heads(want, 1)
+    assert float(entering.abs().max()) > 65504 > float(want.abs().max())
+    got = tapi.ssm_scan(u, a, b, c, chunk=chunk)
+    assert bool(torch.isfinite(got).all())
+    tol = dict(_SSM_TOL)[torch.float16]
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol * float(want.abs().max()))
 
 
@@ -627,3 +664,25 @@ def test_ssm_scan_wgmma_copies_a_misaligned_view(dev):
     want = ssm_scan_cuda(u, a, b, c, chunk=64)
     torch.testing.assert_close(ssm_scan_cuda(shifted[0], a, *shifted[1:], chunk=64), want,
                                rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the paper's suites through their cuda variants
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name,kernel", [
+    ("bandwidth[cuda]", "stream_reduce"), ("axpy[cuda]", "axpy"), ("memhier[cuda]", "pchase"),
+    ("scheduler[cuda]", "stream_reduce"), ("instr", "op_latency"),
+])
+def test_paper_suite_runs_its_kernel(dev, name, kernel):
+    """Each suite's cuda path, quick: every point measured (no skipped row),
+    finite and positive, on the card's kernel (its launch count rises)."""
+    from repro_torch.bench import runner
+    from repro_torch.core import registry
+
+    runner.load_suites()
+    before = _util.launch_counts().get(kernel, 0)
+    recs = registry.get(name).run("quick", {"device": str(dev)})
+    torch.cuda.synchronize()
+    assert _util.launch_counts().get(kernel, 0) > before
+    assert recs and not any("skipped" in r.name for r in recs)
+    assert all(np.isfinite(r.value) and r.value > 0 for r in recs if r.measured)

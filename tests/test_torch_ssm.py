@@ -292,12 +292,38 @@ def test_pass_wrappers_on_cpu_tensors_compose_to_the_scan():
 
 
 @pytest.mark.parametrize("dtype,p,n,want", [
-    (torch.bfloat16, 64, 64, True), (torch.float16, 16, 128, True), (torch.bfloat16, 80, 48, True),
+    (torch.bfloat16, 64, 64, True), (torch.float16, 16, 128, False), (torch.bfloat16, 80, 48, True),
     (torch.float32, 64, 64, False), (torch.bfloat16, 192, 16, False),
     (torch.bfloat16, 64, 300, False), (torch.bfloat16, 8, 4, False),
     (torch.float16, 64, 24, False), (torch.bfloat16, 144, 64, False),
 ])
 def test_tc_route_takes_16_bit_widths_up_to_128(dtype, p, n, want):
-    """bf16/fp16 with P and N multiples of 16 up to 128 go to the wgmma
-    kernel; fp32 and every other width stay on the SIMT one."""
+    """bf16 with P and N multiples of 16 up to 128 goes to the wgmma kernel;
+    fp32, fp16 (whose state would overflow in the wgmma route's fp16 hi + lo
+    pairs) and every other width stay on the SIMT one."""
     assert tssd.tc_route(dtype, p, n) is want
+
+
+def test_fp16_state_case_overflows_fp16_in_the_state_only():
+    """The card's fp16 case (``test_torch_cuda.fp16_state_case``) does what it
+    is meant to on the CPU: the state passes 65,504, y stays inside it, and
+    the scan takes the SIMT route, whose state is fp32.  The reference's
+    kernel (interpret mode) on the same fp16 inputs keeps its fp32 state, and
+    it and the wrapper's plain version agree with the fp32 scan within
+    fp16's limit."""
+    from test_torch_cuda import _SSM_TOL, fp16_state_case
+
+    chunk = 256
+    u, a, b, c = fp16_state_case("cpu")
+    states, acum = tref.ssd_chunk_states(u.float(), a, b.float(), chunk)
+    entering, _ = tref.ssd_pass_states(states, acum, chunk)
+    want = ssm_scan_cuda(u.float(), a, b.float(), c.float(), chunk=chunk)
+    assert float(entering.abs().max()) > 65504 > float(want.abs().max())
+    assert not tssd.tc_route(u.dtype, u.shape[-1], b.shape[-1])
+    jax_y = japi.ssm_scan(*(jnp.asarray(t.numpy()) for t in (u, a, b, c)), chunk=chunk,
+                          backend="pallas")
+    tol = dict(_SSM_TOL)[torch.float16]
+    for got in (ssm_scan_cuda(u, a, b, c, chunk=chunk), torch.tensor(np.asarray(jax_y))):
+        assert got.dtype == torch.float16
+        torch.testing.assert_close(got.float(), want, rtol=tol,
+                                   atol=tol * float(want.abs().max()))

@@ -55,7 +55,39 @@ Phases, in order; any failure exits non-zero before the final line:
    at the chunk the autotuner picks for the H100 (512), which must reach the
    ssm_scan kernel at that chunk and agree with the chunk-256 forward; the
    plain forward is rooflined as in phase 7;
-9. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
+9. the numerics guard (``kernels/guard.py``) at gemma-2b's full width and
+   depth: the 4 x 1000 prefill with ``attn_impl="pallas"`` under
+   ``kernel_policy(guard="shadow")`` at the H100's tolerances, every flash
+   launch shadowed by the torch oracle, plus the guard's verify sweep (the
+   matmul, flash and axpy kernels against their oracles): no drift, fault,
+   saturation or degraded call, nothing quarantined; then ``python -m
+   repro_torch.bench run --guard shadow --only gemm_lp --quick`` in a
+   subprocess, which must exit 0; then drift injected into flash_attention
+   must be caught, quarantine that op only and serve degraded calls, and
+   ``probe``/``revive`` must close the breaker once the drift is cleared;
+   then an int8 matmul whose |a|@|b| passes int32's max must raise
+   ``SaturationError``;
+10. the serving engine (``repro_torch.serve``) at gemma-2b's full width and
+   depth: 8 requests (prompts of 200-1000 tokens from numpy seed 0, each
+   starting with one shared 128-token prefix) over 4 slots, 32 greedy tokens
+   each, chunked prefill of 128 tokens (the chunk's logits are 4 x 128 x
+   256,000 bf16, 262 MB), max_len 1056, ``guard="sample"`` and
+   ``degrade=False``; one dense engine and one paged engine (page 16, a
+   66-page table, so T*page == max_len, with the prefix registered); every
+   request must finish, and the tokens of both engines must equal a direct
+   loop over ``decode_chunk``/``decode_step``; no degradation, drift or
+   quarantine (the engine's steps launch no hand kernel, so its guard checks
+   compare torch with torch on this slice); ``decode_chunk``'s logits at
+   each prompt's last position must agree with ``model.prefill``'s (the
+   flash kernel's path) in float32 within ``tolerance(float32,
+   "nvidia-h100-sxm")``, and the served bf16 rows' distance from the bf16
+   flash prefill is printed beside the blockwise prefill's; TTFT,
+   per-token latency, tokens/s, concurrency and
+   reused prefix tokens are printed (smoke readings: 8 requests, so a p99 is
+   their maximum); then one ``torch.profiler`` trace of a single
+   dense decode step with 4 active lanes: its five longest device operations,
+   the device's busy and idle share of the step, and the step's wall time;
+11. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Rates used for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s HBM,
@@ -71,6 +103,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -145,6 +178,9 @@ GATE_PROBE = "oplat_fma.f32"  # the measured latency record doubled to show the 
 # most of the 128 MiB array's 1 M 128-byte lines)
 HBM_WALK_BYTES, HBM_WALK_STEPS = (128 << 20, 256 << 20), 1 << 21
 AXPY_SWEEP_SHAPE = (32768, 2048)  # Fig 1.1's sweep: 256 MiB of fp32 an array
+# phase 10: the serving engine at gemma-2b's full width
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW, SERVE_CHUNK = 8, 4, 32, 128
+SERVE_PROMPT_LENS, SERVE_PREFIX, SERVE_MAX_LEN, SERVE_PAGE = (200, 1000), 128, 1056, 16
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -1440,6 +1476,326 @@ def zamba_path(torch, dev) -> dict:
     return total
 
 
+def gemma_full(torch, dev) -> tuple:
+    """gemma-2b at full width and depth with the flash kernel, its params
+    made on the card from a seeded generator."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("gemma-2b").replace(attn_impl="pallas")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    return cfg, model, params
+
+
+def guard_path(torch, dev, cfg, model, params) -> dict:
+    """Phase 9: the numerics guard on the card (see the module docstring)."""
+    from repro_torch.kernels import _util, api, guard
+
+    phase_start = time.perf_counter()
+    h100 = guard.GuardConfig(hw="nvidia-h100-sxm")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    with guard.isolated(h100):
+        _util.reset_launch_counts()
+        with torch.inference_mode(), api.kernel_policy(guard="shadow"):
+            last, _ = model.prefill(params, {"tokens": prompts})
+            sweep = guard.verify_ops()
+        torch.cuda.synchronize()
+        counts = _util.launch_counts()
+        m = guard.metrics()
+        shadowed = dict(guard.state()._calls)
+        clean = m.summary()
+        quarantined = guard.quarantined_ops()
+    checks = {op: shadowed.get(op, 0) + int(sweep[op].checked > 0) for op in sweep}
+    print(f"guard: clean shadow run: checks by op {checks}, {json.dumps(clean)}, sweep "
+          + json.dumps({op: {"ok": r.ok, "max_ulp": r.max_ulp, "backend": r.backend}
+                        for op, r in sweep.items()}), flush=True)
+    if not torch.isfinite(last.float()).all():
+        raise AssertionError("guard: the guarded prefill's logits are not finite")
+    if (min(checks["flash_attention"], checks["matmul"]) <= 0 or shadowed.get("flash_attention")
+            != cfg.n_layers or not all(r.ok and r.backend == "cuda" for r in sweep.values())):
+        raise AssertionError(f"guard: checks {checks}, sweep {sweep}")
+    if (clean["drift_events"] or clean["faults"] or clean["degraded_calls"]
+            or clean["saturation_events"] or clean["max_saturation_fraction"] or quarantined):
+        raise AssertionError(f"guard: the clean run saw {clean}, quarantined {quarantined}")
+    if counts.get("flash_attention", 0) < cfg.n_layers + 1 or not counts.get("axpy"):
+        raise AssertionError(f"guard: launches {counts}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.bench", "run", "--guard", "shadow", "--only",
+             "gemm_lp", "--quick", "--out", os.path.join(tmp, "r.json")],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+            capture_output=True, text=True, timeout=600)
+    line = [ln for ln in proc.stderr.splitlines() if ln.startswith("guard[")]
+    print(f"guard: bench run --guard shadow --only gemm_lp --quick: rc {proc.returncode}, "
+          f"{line}", flush=True)
+    if proc.returncode != 0 or not line or " 0 drift, 0 saturation, 0 faults" not in line[0]:
+        raise AssertionError(f"guard: bench run --guard failed:\n{proc.stdout}\n{proc.stderr}")
+
+    with guard.isolated(guard.GuardConfig(hw="nvidia-h100-sxm", on_drift="oracle")):
+        guard.inject_drift("flash_attention", scale=0.05, seed=0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            with torch.inference_mode(), api.kernel_policy(guard="shadow"):
+                drifted, _ = model.prefill(params, {"tokens": prompts})
+        caught = guard.metrics().summary()
+        quarantined = guard.quarantined_ops()
+        guard.clear_drift("flash_attention")
+        probed = guard.probe("flash_attention")
+        guard.revive("flash_attention")
+        after = guard.quarantined_ops()
+    print(f"guard: injected drift into flash_attention: {json.dumps(caught)}, quarantined "
+          f"{quarantined}, probe after clearing {probed}, quarantined after revive {after}",
+          flush=True)
+    if (caught["drift_events"] < 1 or quarantined != ("flash_attention",)
+            or caught["quarantined_ops"] != ["flash_attention"] or caught["degraded_calls"] < 1
+            or not probed or after):
+        raise AssertionError(f"guard: injected drift was not handled: {caught}")
+    rel = float((drifted.float() - last.float()).abs().max() / last.float().abs().max())
+    print(f"guard: logits served through the quarantine against the clean run: max rel {rel:.3e}",
+          flush=True)
+
+    with guard.isolated(h100):
+        k = 140_000  # 127 * 127 * 140,000 > 2^31 - 1
+        a = torch.full((16, k), 127, dtype=torch.int8, device=dev)
+        b = torch.full((k, 16), 127, dtype=torch.int8, device=dev)
+        try:
+            with api.kernel_policy(guard="shadow"):
+                api.matmul(a, b, out_dtype=torch.int32)
+        except guard.SaturationError as err:
+            print(f"guard: int8 matmul past int32's max: SaturationError ({err})", flush=True)
+        else:
+            raise AssertionError("guard: an int8 matmul past int32's max did not raise")
+        if guard.quarantined_ops():
+            raise AssertionError("guard: saturation quarantined an op")
+    print(f"guard: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
+    return counts
+
+
+def direct_tokens(torch, model, params, prompts, dev) -> tuple:
+    """The serving phase's reference: the prompts in lanes of SERVE_SLOTS,
+    each group prefilled through ``decode_chunk`` (SERVE_CHUNK tokens a call,
+    ragged lanes padded with the cache length) and decoded greedily through
+    ``decode_step``.  Returns the tokens and each prompt's last logits row."""
+    out, rows = [], []
+    for g in range(0, len(prompts), SERVE_SLOTS):
+        group = prompts[g:g + SERVE_SLOTS]
+        cache = model.init_cache(SERVE_SLOTS, SERVE_MAX_LEN)
+        width = -(-max(map(len, group)) // SERVE_CHUNK) * SERVE_CHUNK
+        toks = torch.zeros((SERVE_SLOTS, width), dtype=torch.int32)
+        poss = torch.full((SERVE_SLOTS, width), SERVE_MAX_LEN, dtype=torch.int32)
+        for i, p in enumerate(group):
+            toks[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+            poss[i, :len(p)] = torch.arange(len(p), dtype=torch.int32)
+        last = [None] * SERVE_SLOTS
+        for c in range(0, width, SERVE_CHUNK):
+            logits, cache = model.decode_chunk(params, cache, toks[:, c:c + SERVE_CHUNK].to(dev),
+                                               poss[:, c:c + SERVE_CHUNK].to(dev))
+            for i, p in enumerate(group):
+                if c < len(p) <= c + SERVE_CHUNK:
+                    last[i] = logits[i, len(p) - 1 - c]
+        rows.extend(last[:len(group)])
+        last = [int(r.argmax()) if r is not None else None for r in last]
+        tok = torch.tensor([t if t is not None else 0 for t in last], dtype=torch.int32,
+                           device=dev)
+        pos = torch.tensor([len(p) for p in group] + [SERVE_MAX_LEN] * (SERVE_SLOTS - len(group)),
+                           dtype=torch.int32, device=dev)
+        gen = [[last[i]] for i in range(len(group))]
+        for _ in range(SERVE_NEW - 1):
+            logits, cache = model.decode_step(params, cache, tok, pos)
+            tok = logits.argmax(-1).to(torch.int32)
+            pos = pos + 1
+            for i, t in enumerate(tok[:len(group)].tolist()):
+                gen[i].append(t)
+        out.extend(gen)
+    return out, rows
+
+
+def chunk_flash_check(torch, cfg, model, params, prompts, served_rows, dev) -> list:
+    """``decode_chunk``'s logits at each prompt's last position against
+    ``model.prefill``'s last logits, the flash kernel's path: an independent
+    route to the same numbers (its launches compare, they are not counted).
+    Gated in float32 compute on the same params, at ``tolerance(float32,
+    "nvidia-h100-sxm")``.  In bf16, 18 layers of rounding put any two
+    attention paths ~10 ulps of bf16 apart near zero, past the guard's
+    per-kernel 4, so the served bf16 rows are reported against the bf16
+    flash prefill beside the plain (blockwise) prefill's own distance from
+    it, the noise floor."""
+    from repro_torch.kernels import guard
+    from repro_torch.models import build_model
+
+    h100 = "nvidia-h100-sxm"
+    tol32, tol16 = guard.tolerance(torch.float32, h100), guard.tolerance(torch.bfloat16, h100)
+    m32 = build_model(cfg.replace(dtype="float32"), device=dev)
+    plain = build_model(cfg.replace(attn_impl="blockwise"), device=dev)
+
+    def report(got, want, tol):
+        r = guard.compare(got, want, tol, op="decode_chunk", backend="torch")
+        return {"ok": r.ok, "max_ulp": r.max_ulp, "max_abs": r.max_abs}
+
+    out = []
+    for p, served in zip(prompts, served_rows):
+        toks = torch.tensor([p], dtype=torch.int32, device=dev)
+        cache = m32.init_cache(1, SERVE_MAX_LEN)
+        for c in range(0, len(p), SERVE_CHUNK):
+            n = min(SERVE_CHUNK, len(p) - c)
+            pos = torch.arange(c, c + n, dtype=torch.int32, device=dev)[None]
+            logits, cache = m32.decode_chunk(params, cache, toks[:, c:c + n], pos)
+        flash32, _ = m32.prefill(params, {"tokens": toks})
+        flash, _ = model.prefill(params, {"tokens": toks})
+        blockwise, _ = plain.prefill(params, {"tokens": toks})
+        out.append({"len": len(p), "row_max": float(flash32.abs().max()),
+                    "float32": report(logits[:, n - 1], flash32, tol32),
+                    "bf16_served": report(served[None], flash, tol16),
+                    "bf16_blockwise": report(blockwise, flash, tol16)})
+    return out
+
+
+def device_busy_us(events) -> float:
+    """Length of the union of the events' time ranges (us)."""
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def serving_path(torch, dev, cfg, model, params) -> dict:
+    """Phase 10: the serving engine at full width (see the module docstring)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+
+    from repro_torch.core.timing import percentile
+    from repro_torch.kernels import _util, guard
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    phase_start = time.perf_counter()
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPT_LENS[0], SERVE_PROMPT_LENS[1] + 1, SERVE_REQUESTS)
+    prefix = [int(t) for t in rng.integers(1, cfg.vocab_size, SERVE_PREFIX)]
+    prompts = [prefix + [int(t) for t in rng.integers(1, cfg.vocab_size, n - SERVE_PREFIX)]
+               for n in lens]
+    base = dict(n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK,
+                guard="sample", degrade=False)
+    results, engines = {}, {}
+    with guard.isolated(guard.GuardConfig(hw="nvidia-h100-sxm")), torch.inference_mode():
+        _util.reset_launch_counts()
+        for name, extra in (("dense", {}), ("paged", {"page_size": SERVE_PAGE})):
+            eng = ServeEngine(model, params, EngineConfig(**base, **extra))
+            if name == "paged":
+                eng.register_prefix(prefix)
+                if eng._table_width * SERVE_PAGE != SERVE_MAX_LEN:
+                    raise AssertionError("serving: the block table does not span max_len")
+            eng.submit(prompts[0][:SERVE_PREFIX + 8], 4)  # warm-up: first calls of both steps
+            eng.run()
+            eng.reset_metrics()
+            t0 = time.perf_counter()
+            sessions = [eng.submit(p, SERVE_NEW) for p in prompts]
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            m = eng.metrics
+            s = eng.summary()
+            results[name] = {
+                "tokens": [x.out for x in sessions],
+                "finished": [x.finish_reason for x in sessions],
+                "wall_s": wall, "ttft_ms_p50": s["ttft_ms_p50"],
+                "ttft_ms_max": max(m.ttft_s) * 1e3,  # 8 requests: a p99 is their max
+                "tok_latency_ms_p50": s["tok_latency_ms_p50"],
+                "tok_latency_ms_p99": percentile(m.token_latency_s, 99) * 1e3,
+                "throughput_tok_s": s["throughput_tok_s"], "prefill_tok_s": s["prefill_tok_s"],
+                "concurrency": s["concurrency"], "ticks": s["ticks"],
+                "prefix_tokens_reused": s["prefix_tokens_reused"], "pages_peak": s["pages_peak"],
+                "guard_checks": s["guard_checks"], "drift_events": s["drift_events"],
+                "degradations": s["degradations"], "op_degradations": s["op_degradations"],
+                "degraded": eng._degraded,
+            }
+            engines[name] = eng
+            print(f"serving {name} (smoke reading, {SERVE_REQUESTS} requests): "
+                  + json.dumps({k: v for k, v in results[name].items() if k != "tokens"}),
+                  flush=True)
+        counts = _util.launch_counts()
+        gm = guard.metrics().summary()
+        quarantined = guard.quarantined_ops()
+        direct, last_rows = direct_tokens(torch, model, params, prompts, dev)
+        chunk_vs_flash = chunk_flash_check(torch, cfg, model, params, prompts, last_rows, dev)
+
+        # one traced dense decode step with every lane active
+        eng = engines["dense"]
+        eng.reset_metrics()
+        for p in prompts[:SERVE_SLOTS]:
+            eng.submit(p[:SERVE_PREFIX], 8)
+        eng.step()  # admission, prefill and the first decode
+        eng.step()  # a decode step, untraced
+        t0 = time.perf_counter()
+        eng.step()
+        untraced_s = time.perf_counter() - t0
+        if sum(x is not None for x in eng.slots) != SERVE_SLOTS:
+            raise AssertionError("serving: the traced step does not have every lane active")
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        checks_before = eng.metrics.guard_checks
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            traced_s = time.perf_counter() - t0
+        shadow_checked = eng.metrics.guard_checks > checks_before
+        eng.run()
+    if any(r != "max_new_tokens" for res in results.values() for r in res["finished"]):
+        raise AssertionError(f"serving: not every request finished: "
+                             f"{[res['finished'] for res in results.values()]}")
+    same_dp = results["dense"]["tokens"] == results["paged"]["tokens"]
+    same_direct = results["dense"]["tokens"] == direct
+    print(f"serving: tokens dense == paged {same_dp}, dense == direct decode_chunk/decode_step "
+          f"{same_direct}; guard {json.dumps(gm)} (the steps launch no hand kernel: each "
+          f"check compares torch with torch); launches {counts}", flush=True)
+    print("serving: decode_chunk's last logits against the flash prefill's (float32 gated "
+          "at 256 ulp; bf16 reported beside the blockwise prefill's spread from flash): "
+          + json.dumps(chunk_vs_flash), flush=True)
+    bad = [r for r in chunk_vs_flash if not r["float32"]["ok"]]
+    if bad:
+        raise AssertionError(f"serving: decode_chunk disagrees with the flash prefill: {bad}")
+    if not (same_dp and same_direct):
+        diff = [(i, a[:8], b[:8], c[:8]) for i, (a, b, c) in
+                enumerate(zip(results["dense"]["tokens"], results["paged"]["tokens"], direct))
+                if not a == b == c]
+        raise AssertionError(f"serving: token streams differ: {diff}")
+    if (any(res["degraded"] or res["degradations"] or res["drift_events"]
+            or res["op_degradations"] for res in results.values())
+            or gm["drift_events"] or quarantined or not results["dense"]["guard_checks"]):
+        raise AssertionError(f"serving: guard or degradation activity: {gm}, {results}")
+    if results["paged"]["prefix_tokens_reused"] != SERVE_REQUESTS * SERVE_PREFIX:
+        raise AssertionError(f"serving: prefix reuse {results['paged']['prefix_tokens_reused']}")
+    if counts:
+        raise AssertionError(f"serving: the engine's steps launched hand kernels: {counts}")
+
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in dev_events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    busy_us = device_busy_us(dev_events)
+    trace = {
+        "step_wall_ms": traced_s * 1e3, "untraced_step_wall_ms": untraced_s * 1e3,
+        "shadow_checked": shadow_checked,
+        "device_ops": len(dev_events), "device_busy_ms": busy_us / 1e3,
+        "busy_share": busy_us / 1e3 / (traced_s * 1e3),
+        "idle_share": 1.0 - busy_us / 1e3 / (traced_s * 1e3),
+        "top5_device_ms": [(n[:90], us / 1e3) for n, us in top],
+    }
+    print("serving: decode-step trace (4 active lanes): " + json.dumps(trace), flush=True)
+    if not dev_events:
+        raise AssertionError("serving: the profiler saw no device operation in the decode step")
+    print(f"serving: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
+    return counts
+
+
 def roofline_share(name, fn, args, n_params, tokens, measured_s) -> dict:
     """Count ``fn(*args)`` once, untimed (``perfmodel.extract_costs``: ATen
     FLOPs and bytes, so on the plain path, whose ops it sees), roofline it
@@ -1503,6 +1859,11 @@ def main() -> int:
     add_counts(counts, lm_path(torch, dev))
     torch.cuda.empty_cache()  # gemma's params are gone; zamba2's 27 GB come next
     add_counts(counts, zamba_path(torch, dev))
+    torch.cuda.empty_cache()  # zamba2's params are gone; gemma-2b's come back
+    cfg, model, params = gemma_full(torch, dev)
+    add_counts(counts, guard_path(torch, dev, cfg, model, params))
+    add_counts(counts, serving_path(torch, dev, cfg, model, params))
+    del params
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print("kernels: " + " ".join(KERNELS))

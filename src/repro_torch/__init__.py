@@ -14,6 +14,8 @@ carries the paper's measure→model loop and the dense transformer LM:
 - ``repro_torch.configs``  the architecture configs
 - ``repro_torch.models``   ``build_model(cfg)``: the dense LM's prefill and
                            decode, attention through the flash kernel
+- ``repro_torch.serve``    the serving engine: chunked prefill, dense and
+                           paged KV, the numerics guard's shadow checks
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

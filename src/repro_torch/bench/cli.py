@@ -9,10 +9,11 @@
 
 ``run`` measures on the card unless ``--device cpu`` is given; with no card
 visible it exits 2 instead of measuring the host.  Exit codes: ``run`` is
-non-zero if any benchmark errored; ``compare`` is non-zero if the gate fails
-(unless ``--warn-only``); ``trend`` is non-zero only on input errors (it
-reports, it does not gate); a malformed or missing input file exits 2.
-``run --guard`` of ``repro.bench`` waits for the numerics guard's port.
+non-zero if any benchmark errored, or — under ``--guard`` — if the numerics
+guard saw any drift, saturation or native fault on what should be a clean run;
+``compare`` is non-zero if the gate fails (unless ``--warn-only``);
+``trend`` is non-zero only on input errors (it reports, it does not gate); a
+malformed or missing input file exits 2.
 """
 from __future__ import annotations
 
@@ -72,7 +73,7 @@ def _cmd_run(args) -> int:
         return 2
     result = runner.run_benchmarks(
         only=only or None, mode=mode, out_path=args.out, verbose=args.verbose,
-        device=args.device,
+        device=args.device, guard=args.guard,
     )
     if args.csv:
         print("name,value,unit,derived")
@@ -87,6 +88,25 @@ def _cmd_run(args) -> int:
         )
     for name, err in sorted(result.errors.items()):
         print(f"ERROR {name}: {err}", file=sys.stderr)
+    if args.guard:
+        from repro_torch.kernels import guard as kguard
+
+        m = kguard.metrics()
+        print(
+            f"guard[{args.guard}]: {m.checks} checks, {m.drift_events} drift, "
+            f"{m.saturation_events} saturation, {m.faults} faults, "
+            f"quarantined={sorted(m.quarantined_ops) or '[]'}",
+            file=sys.stderr,
+        )
+        if m.drift_events or m.saturation_events:
+            print(
+                "guard: drift/saturation detected on a clean run — failing",
+                file=sys.stderr,
+            )
+            return 1
+        if m.faults:
+            print("guard: a kernel op faulted on a clean run — failing", file=sys.stderr)
+            return 1
     return 1 if result.errors else 0
 
 
@@ -161,6 +181,11 @@ def main(argv=None) -> int:
     p.add_argument(
         "--device", default="cuda",
         help="device to measure: cuda (default; fails with no card visible) or cpu",
+    )
+    p.add_argument(
+        "--guard", choices=("sample", "shadow"),
+        help="run under the numerics guard; exit 1 on any drift, saturation "
+             "or native fault (clean-run gate)",
     )
     p.add_argument("-v", "--verbose", action="store_true")
     p.set_defaults(fn=_cmd_run)

@@ -14,9 +14,10 @@ Paper map (table/figure -> registered name):
     Tab 3.1 / Tab 4.3  gemm_lp     low-precision TensorCore ladder vs spec DB
     Fig 4.3-4.5        throttle    power/thermal clock governor
     Ch. 3+4 (whole)    dissect     probe suite -> fitted HardwareModel
+    Ch.1 + Fig 4.3     serving     serving engine under sustained load
 
-The serving suites of ``repro.bench.suites`` (``serving``,
-``serving_chaos``, ``serving_scaled``) wait for the serving engine's port.
+The reference's ``serving_chaos`` and ``serving_scaled`` wait for the port
+of the serving cluster and its fault layer (ROADMAP.md §1 item 8).
 """
 from . import (  # noqa: F401  (import side effect: registration)
     atomics,
@@ -28,5 +29,6 @@ from . import (  # noqa: F401  (import side effect: registration)
     instr,
     memhier,
     scheduler,
+    serving,
     throttle,
 )

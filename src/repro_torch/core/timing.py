@@ -37,6 +37,18 @@ class Timing:
         return self.median_s * 1e6
 
 
+def percentile(samples, q: float) -> float:
+    """Linear-interpolated percentile (``q`` in [0, 100]) of a sample
+    sequence; NaN on empty input.  Shared by the serving metrics and any
+    harness that reports latency distributions."""
+    samples = list(samples)
+    if not samples:
+        return float("nan")
+    import numpy as np
+
+    return float(np.percentile(samples, q))
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raise :class:`NoCudaDeviceError`
     rather than fall back to the CPU when CUDA is asked for and absent."""

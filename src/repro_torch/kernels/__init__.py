@@ -15,5 +15,8 @@ Each kernel is CUDA C++ for ``sm_90a`` under ``csrc/``, built on first use,
 and is validated against the plain PyTorch versions in ``ref.py``.
 
 ``api.py`` is the public entry point: every op has a ``cuda`` backend (the
-hand kernel) and a ``torch`` backend (the ref.py oracle).
+hand kernel) and a ``torch`` backend (the ref.py oracle).  ``guard.py`` is
+the numerics guard: under ``kernel_policy(guard="sample"|"shadow")`` the
+``cuda`` calls are shadowed by the oracle, saturation is bounded, and a
+drifting op is quarantined to the oracle.
 """

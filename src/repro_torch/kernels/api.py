@@ -27,8 +27,15 @@ Tile kwargs resolve as the reference's: explicit kwarg > ``policy.tiles[op]``
 backend)``) > the implementation's defaults.  The autotuners cost tiles for
 the H100 (``hw="nvidia-h100-sxm"``) when the tensors lie on the card, and for
 the reference's default part (TPU v5e) when they lie on the CPU, so a CPU
-parity test resolves the reference's tiles for the same arguments.  The
-numerics guard waits for the port of ``kernels/guard.py``.
+parity test resolves the reference's tiles for the same arguments.
+
+With ``guard="sample"`` or ``guard="shadow"``, calls are verified by
+:mod:`repro_torch.kernels.guard`: a seed-deterministic sample (or every call)
+re-executes on the ``torch`` oracle and compares under the per-dtype
+tolerance ladder; drifting or faulting ops are quarantined to the oracle
+per-op with breaker-style cooldown.  On CUDA tensors only an injected fault
+or drift reaches the oracle: a real one raises.  ``op.bound()`` stays guard-free by
+design — timing loops measure the native path only.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from dataclasses import dataclass, field
 from functools import partial
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import tuning
@@ -51,6 +59,7 @@ from repro_torch.core.autotune import (
 
 from . import axpy as _axpy
 from . import flash_attention as _fa
+from . import guard as _guard
 from . import matmul as _mm
 from . import membw as _bw
 from . import pchase as _pc
@@ -84,12 +93,15 @@ class KernelPolicy:
     ``backend`` of None defers to :func:`default_backend`; ``autotune``
     lets :mod:`repro_torch.core.autotune` pick the tile kwargs nothing else
     pins; ``tiles`` maps op name -> tile-kwarg overrides (e.g. ``{"matmul":
-    {"bm": 256}}``) and is merged across nested policies.
+    {"bm": 256}}``) and is merged across nested policies.  ``guard`` of None
+    inherits (defaulting to ``"off"`` at the root); ``"sample"``/``"shadow"``
+    enable run-time verification via :mod:`repro_torch.kernels.guard`.
     """
 
     backend: Optional[str] = None
     autotune: bool = False
     tiles: dict = field(default_factory=dict)
+    guard: Optional[str] = None
 
 
 _POLICY: ContextVar[KernelPolicy] = ContextVar("kernel_policy", default=KernelPolicy())
@@ -104,10 +116,12 @@ def kernel_policy(backend: Optional[str] = None, autotune: Optional[bool] = None
                   tiles: Optional[dict] = None, guard: Optional[str] = None):
     """Scoped policy override; unspecified fields inherit from the enclosing
     policy, and the previous policy is restored on exit (exception-safe)."""
-    if guard not in (None, "off"):
-        raise NotImplementedError(f"guard={guard!r} waits for the port of kernels/guard.py")
     if backend is not None and backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if guard is not None and guard not in _guard.GUARD_MODES:
+        raise ValueError(
+            f"unknown guard mode {guard!r}; expected one of {_guard.GUARD_MODES}"
+        )
     outer = _POLICY.get()
     merged_tiles = dict(outer.tiles)
     for op_name, ov in (tiles or {}).items():
@@ -126,6 +140,7 @@ def kernel_policy(backend: Optional[str] = None, autotune: Optional[bool] = None
         backend=outer.backend if backend is None else backend,
         autotune=outer.autotune if autotune is None else autotune,
         tiles=merged_tiles,
+        guard=outer.guard if guard is None else guard,
     )
     token = _POLICY.set(pol)
     try:
@@ -243,7 +258,20 @@ class KernelOp:
         return partial(impl, **kwargs)
 
     def __call__(self, *args, backend: Optional[str] = None, **kwargs):
-        return self.bound(*args, backend=backend, **kwargs)(*args)
+        mode = current_policy().guard
+        if mode is None or mode == "off":
+            return self.bound(*args, backend=backend, **kwargs)(*args)
+        be = resolve_backend(backend, _args_device(args))
+        if be != "cuda" or "torch" not in self._impls or _guard.tracing(args):
+            # nothing to shadow against (torch already *is* the oracle, or
+            # the op has no oracle binding), or a CUDA graph is being
+            # captured, where no result can be read back — quarantine
+            # routing still applies (and raises on the card for a real failure)
+            if be == "cuda" and "torch" in self._impls and _guard.serves_oracle(self.name, args):
+                _guard.state().metrics.degraded_calls += 1
+                be = "torch"
+            return self.bound(*args, backend=be, **kwargs)(*args)
+        return _guard.state().guarded_call(self, args, kwargs, be, mode)
 
     def __repr__(self) -> str:
         return f"KernelOp({self.name!r}, backends={sorted(self._impls)})"
@@ -451,6 +479,45 @@ def ssm_scan(u, a_log, b, c, *, chunk=256):
 def _ssm_scan_torch(u, a_log, b, c):
     y = ref.ssm_scan_ref(*flatten_ssm(u, a_log, b, c))
     return unflatten_heads(y, u.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# guard hooks: saturation sentinels + canonical probe inputs.  The sentinel
+# fns live beside their kernels (matmul/flash_attention own the accumulation
+# semantics); registration lives here so guard.py never imports kernels.
+# Each probe factory takes the device the probe runs on and places its
+# inputs there.
+# ---------------------------------------------------------------------------
+_guard.register_sentinel("matmul", _mm.saturation_check)
+_guard.register_sentinel("flash_attention", _fa.saturation_check)
+
+
+def _probe_tensor(rng, shape, device) -> torch.Tensor:
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+
+def _matmul_probe(device):
+    rng = np.random.default_rng(0)
+    return (_probe_tensor(rng, (16, 16), device), _probe_tensor(rng, (16, 16), device)), {}
+
+
+def _flash_attention_probe(device):
+    rng = np.random.default_rng(0)
+    shape = (1, 16, 2, 8)  # (B, S, H, hd)
+    return tuple(_probe_tensor(rng, shape, device) for _ in range(3)), {}
+
+
+def _axpy_probe(device):
+    # (8, 512): divisible by axpy's default (block_rows, block_cols) tiles
+    rng = np.random.default_rng(0)
+    x = _probe_tensor(rng, (8, 512), device)
+    y = _probe_tensor(rng, (8, 512), device)
+    return (x, y, 1.5), {}
+
+
+_guard.register_probe("matmul", _matmul_probe)
+_guard.register_probe("flash_attention", _flash_attention_probe)
+_guard.register_probe("axpy", _axpy_probe)
 
 
 __all__ = [

@@ -22,8 +22,8 @@ shapes sits at the tensor cores' ridge, so the card's floor is theirs.
   head-flattened layout at the head's own width, each block computing a
   slice of 256 output columns over scores taken across the whole width.
 
-The reference's ``saturation_check`` guard sentinel waits for the port of
-``kernels/guard.py``.
+:func:`saturation_check` is the numerics guard's sentinel for this op
+(registered by ``kernels.api``).
 """
 from __future__ import annotations
 
@@ -39,6 +39,31 @@ HEAD_DIMS = (64, 128, 256)  # the fp32 kernel's template instances
 MAX_HEAD_DIM = 256
 TMA_DTYPES = (torch.bfloat16, torch.float16)
 TMA_STRIDE_BYTES = 16  # the TMA's unit of a global stride
+#: |out| within this factor of finfo.max counts as saturated for fp16/bf16
+_SATURATION_MARGIN = 0.99
+
+
+def saturation_check(args, out):
+    """Guard sentinel: saturated fraction of the attention output (see
+    ``repro_torch.kernels.guard``).
+
+    The softmax weights are bounded in [0, 1], so the output is a convex
+    combination of v rows — saturation can only come from the accumulation
+    itself: non-finite entries (an overflowed qk^T row poisons the whole
+    softmax) or, for the narrow fp16/bf16 dtypes, magnitudes pinned near
+    ``finfo.max``.  Computed on ``out``'s device; the fraction is the one
+    number read back.
+    """
+    if out.numel() == 0:
+        return 0.0, "empty output"
+    of = out.double()
+    bad = ~torch.isfinite(of)
+    detail = "non-finite entries"
+    if out.dtype in (torch.float16, torch.bfloat16):
+        limit = _SATURATION_MARGIN * float(torch.finfo(out.dtype).max)
+        bad |= of.abs() >= limit
+        detail = f"non-finite or |out| >= {_SATURATION_MARGIN:g}*finfo.max"
+    return float(bad.double().mean()), detail
 
 
 def kernel_head_dim(hd: int) -> int:

@@ -22,8 +22,8 @@ as the reference casts (:func:`repro_torch.kernels.ref.cast_like_xla`).
   launch, ``matmul_transpose``).  A row that is not a whole number of 16
   bytes (the TMA's stride unit) is zero-padded first.
 
-The reference's ``saturation_check`` guard sentinel waits for the port of
-``kernels/guard.py``.
+:func:`saturation_check` is the numerics guard's sentinel for this op
+(registered by ``kernels.api``).
 """
 from __future__ import annotations
 
@@ -31,6 +31,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from repro_torch.core.autotune import dtype_name
 
 from . import _util, ref
 
@@ -45,6 +47,8 @@ IN_DTYPES = (torch.float32, *TC_KERNELS)
 OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32, torch.int8,
               torch.float8_e4m3fn)
 TMA_STRIDE_BYTES = 16  # the TMA's unit of a global row stride
+#: |out| within this factor of finfo.max counts as saturated for float dtypes
+_SATURATION_MARGIN = 0.99
 
 _ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -58,6 +62,44 @@ _TC_ARGTYPES = (
 _TRANSPOSE_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
 )
+
+
+def saturation_check(args, out):
+    """Guard sentinel: fraction of the matmul output lost to overflow or
+    saturation, plus a human-readable detail (see ``repro_torch.kernels.guard``).
+
+    Integer outputs need the bound computed from the *inputs*: an accumulate
+    that overflows the output's range wraps or saturates on the cast, so
+    inspecting ``out`` alone has false negatives.  ``|a| @ |b|`` is a
+    triangle-inequality upper bound — every entry it clears is provably safe,
+    every entry past the dtype max is counted saturated (conservative, zero
+    false negatives).  It is computed in float64, which is exact here
+    (128 * 128 * K < 2^53 for any K below 5e11) and which the card's matmul
+    takes where int64 has none.  Float outputs saturate visibly: count
+    non-finite entries plus magnitudes within ``_SATURATION_MARGIN`` of
+    ``finfo.max`` for the narrow dtypes (fp16/bf16); fp32+ counts non-finite
+    only.  Everything runs on ``out``'s device; the fraction is the one
+    number read back.
+    """
+    if out.numel() == 0:
+        return 0.0, "empty output"
+    if not out.dtype.is_floating_point:
+        a = args[0].to(out.device, torch.float64).abs()
+        b = args[1].to(out.device, torch.float64).abs()
+        limit = torch.iinfo(out.dtype).max
+        frac = float(((a @ b) > limit).double().mean())
+        return frac, (
+            f"|a|@|b| accumulation bound exceeds {dtype_name(out.dtype)} max ({limit}) on "
+            f"{frac:.1%} of entries"
+        )
+    of = out.double()
+    bad = ~torch.isfinite(of)
+    detail = "non-finite entries"
+    if out.dtype in (torch.float16, torch.bfloat16):
+        limit = _SATURATION_MARGIN * float(torch.finfo(out.dtype).max)
+        bad |= of.abs() >= limit
+        detail = f"non-finite or |out| >= {_SATURATION_MARGIN:g}*finfo.max"
+    return float(bad.double().mean()), detail
 
 
 def tma_row(n: int, element_size: int) -> int:

@@ -4,9 +4,22 @@ Port of ``repro.models.api``.  ``build_model(cfg)`` returns a
 :class:`ModelApi`, a frozen bundle of functions closed over the config.
 State (params, caches) flows through arguments and return values, never
 through the object.  The port has the dense and hybrid (zamba2) families
-so far; the others raise ``NotImplementedError`` naming the family, and
-``decode_chunk`` and the paged-cache twins stay ``None`` until the serving
-engine is ported (ROADMAP.md).
+so far; the others raise ``NotImplementedError`` naming the family.
+
+Two KV-cache layouts coexist behind the same façade, as in the reference:
+
+- **dense** — ``init_cache(batch, max_len)`` reserves one contiguous
+  ``max_len`` region per lane; ``decode_step``/``decode_chunk`` index it
+  directly.
+- **paged** — ``init_paged_cache(n_pages, page_size)`` builds one global
+  page pool shared by all lanes; ``decode_step_paged``/``decode_chunk_paged``
+  take an extra ``block_table (B, T)`` mapping each lane's logical position
+  ``t`` to pool page ``bt[b, t // page]``.
+
+The hybrid family keeps ``decode_chunk`` and the paged fields ``None``: its
+recurrent per-lane state cannot yet advance independently inside a shared
+batch, so the serving engine refuses it.  The reference's cache sharding
+fields wait for the port's distribution layer (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -37,6 +50,19 @@ class ModelApi:
     - ``init_cache(batch, max_len)`` a zeroed dense per-lane KV cache on the
       model's device; ``cache_specs(batch, max_len)`` the same on the
       ``meta`` device (no storage)
+    - ``decode_chunk(params, cache, tokens (B,C), positions (B,C)) -> (logits
+      (B,C,V), cache)``: C decode-step-equivalent steps in one call;
+      positions == cache_len marks pad entries (no write, row ignored).
+      None for families whose per-lane state cannot yet advance
+      independently inside a shared batch (recurrent caches).
+    - the paged twins (None where unsupported): ``init_paged_cache(n_pages,
+      page_size)`` / ``paged_cache_specs`` build the global pool {"k"/"v":
+      (L, n_pages, page, K, hd)}; ``decode_step_paged(params, cache,
+      block_table, tokens (B,), pos (B,))`` and ``decode_chunk_paged(params,
+      cache, block_table, tokens (B,C), positions (B,C))`` take the
+      ``block_table (B, T)`` ahead of tokens/positions, and a position >=
+      T*page means "pad: write nothing".  Gathering a lane's pages
+      reproduces its dense cache exactly.
     """
 
     cfg: ModelConfig
@@ -94,7 +120,27 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelApi:
     def cache_specs(batch, max_len):
         return attn.cache_specs(cfg, batch, max_len, cfg.n_layers, _cache_dtype(cfg))
 
-    return ModelApi(cfg, device, init, loss_fn, prefill, decode_step, init_cache, cache_specs)
+    def decode_chunk(params, cache, tokens, positions):
+        return transformer.lm_decode_chunk(params, cache, tokens, positions, cfg)
+
+    def init_paged_cache(n_pages, page_size):
+        return attn.init_paged_cache(cfg, n_pages, page_size, cfg.n_layers, _cache_dtype(cfg),
+                                     device)
+
+    def paged_cache_specs(n_pages, page_size):
+        return attn.paged_cache_specs(cfg, n_pages, page_size, cfg.n_layers, _cache_dtype(cfg))
+
+    def decode_step_paged(params, cache, block_table, tokens, pos):
+        return transformer.lm_decode_step_paged(params, cache, block_table, tokens, pos, cfg)
+
+    def decode_chunk_paged(params, cache, block_table, tokens, positions):
+        return transformer.lm_decode_chunk_paged(params, cache, block_table, tokens, positions,
+                                                 cfg)
+
+    return ModelApi(cfg, device, init, loss_fn, prefill, decode_step, init_cache, cache_specs,
+                    decode_chunk=decode_chunk, init_paged_cache=init_paged_cache,
+                    paged_cache_specs=paged_cache_specs, decode_step_paged=decode_step_paged,
+                    decode_chunk_paged=decode_chunk_paged)
 
 
 def _check_generator(gen: torch.Generator, device: torch.device) -> None:

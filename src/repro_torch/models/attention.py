@@ -5,8 +5,9 @@ Port of ``repro.models.attention``.  ``blockwise_attention`` is plain torch
 and runs anywhere; ``pallas_attention`` (``cfg.attn_impl == "pallas"``, the
 reference's name) goes through ``kernels.api.flash_attention``, which
 launches the hand-written CUDA kernel on CUDA tensors and takes its plain
-version on CPU tensors.  The paged-cache functions come with the serving
-engine.
+version on CPU tensors.  The KV cache comes in the reference's two layouts:
+dense per-lane regions and a global page pool read through block tables
+(the serving engine's paged KV).
 """
 from __future__ import annotations
 
@@ -214,13 +215,15 @@ def decode_attention(
     *,
     use_rope: bool = True,
     update_cache: bool = True,
+    write_plan: Optional[tuple] = None,
 ):
     """One decode step for one layer.
 
     x: (B, d) new-token hidden; cache_k/v: (B, Smax, K, hd); pos: (B,) int
     (index where the new token lands; a lane with pos >= Smax writes
     nothing).  Returns (y (B, d), new_k, new_v); the caches passed in are
-    left as they were.
+    left as they were, unless a ``write_plan`` (:func:`dense_write_plan` of
+    ``pos[:, None]``) writes the token into them in place.
     """
     b, _ = x.shape
     dt = x.dtype
@@ -238,7 +241,10 @@ def decode_attention(
 
     smax = cache_k.shape[1]
     slots = torch.arange(smax, device=x.device)
-    if update_cache:
+    if update_cache and write_plan is not None:
+        put_kv_(cache_k, write_plan, k[:, None])
+        put_kv_(cache_v, write_plan, v[:, None])
+    elif update_cache:
         write = (slots[None, :] == pos[:, None])[:, :, None, None]  # (B, Smax, 1, 1)
         cache_k = torch.where(write, k[:, None].to(cache_k.dtype), cache_k)
         cache_v = torch.where(write, v[:, None].to(cache_v.dtype), cache_v)
@@ -255,3 +261,163 @@ def decode_attention(
     o = o.reshape(b, cfg.n_heads, hd).to(dt)
     y = torch.einsum("bhx,hxd->bd", o, params["wo"].to(dt))
     return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# in-place KV writes
+# ---------------------------------------------------------------------------
+def kv_write_plan(slots: torch.Tensor, keep: torch.Tensor) -> tuple:
+    """Index plan for writing E entries into a flat KV buffer in place,
+    without reading ``keep`` back to the host: ``(slot, src, any_kept)``.
+
+    slots, keep (E,): each entry's flat slot and whether it is written.  A
+    dropped entry rewrites the first kept entry (its slot, its value); when
+    none is kept every entry rewrites slot 0 with its own contents.  Kept
+    entries must target distinct slots.  One plan serves every layer's k
+    and v of a step (:func:`put_kv_`).
+    """
+    idx = torch.arange(keep.shape[0], device=keep.device)
+    src = torch.where(keep, idx, keep.int().argmax())
+    any_kept = keep.any()
+    return torch.where(any_kept, slots[src], 0), src, any_kept
+
+
+def dense_write_plan(smax: int, positions: torch.Tensor) -> tuple:
+    """:func:`kv_write_plan` for the lane cache (B, Smax, K, hd): ``positions``
+    (B, C); a position >= Smax is padding and writes nothing (the
+    reference's one-hot select computes the same)."""
+    positions = positions.long()
+    lanes = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    return kv_write_plan((lanes * smax + positions).reshape(-1), (positions < smax).reshape(-1))
+
+
+def put_kv_(cache: torch.Tensor, plan: tuple, val: torch.Tensor) -> torch.Tensor:
+    """Write ``val`` (B, C, K, hd) into ``cache`` — the lane cache (B, Smax,
+    K, hd) or the page pool (N_pages, page, K, hd) — in place, through a
+    plan of :func:`dense_write_plan` or :func:`paged_write_plan`.  Returns
+    ``cache``."""
+    slot, src, any_kept = plan
+    flat = cache.view(-1, *cache.shape[2:])
+    v = val.reshape(-1, *val.shape[2:]).index_select(0, src).to(cache.dtype)
+    flat.index_put_((slot,), torch.where(any_kept, v, flat[:1]))
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache: a global page pool indexed through per-lane block tables
+# ---------------------------------------------------------------------------
+# Layout: the dense (L, B, Smax, K, hd) per-lane cache becomes one global
+# pool (L, N_pages, page, K, hd) shared by every lane.  A lane's cache is the
+# ordered page list in its block-table row: logical position t lives in page
+# ``bt[lane, t // page]`` at offset ``t % page``, so a gather of the row
+# reconstructs the dense per-lane layout exactly (gathered index == logical
+# position).  Lanes share read-only pages (common prefixes) by listing the
+# same page id; the host-side allocator (repro_torch.serve.paging) guarantees
+# a page referenced by more than one owner is never written.
+def init_paged_cache(cfg, n_pages: int, page_size: int, n_layers: int,
+                     dtype=torch.bfloat16, device="cuda"):
+    """Global KV page pool (L, N_pages, page, K, hd) pair."""
+    shape = (n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_cache_specs(cfg, n_pages: int, page_size: int, n_layers: int, dtype=torch.bfloat16):
+    """The pool's shapes and dtypes on the ``meta`` device (no storage)."""
+    return init_paged_cache(cfg, n_pages, page_size, n_layers, dtype, device="meta")
+
+
+def gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Reconstruct the dense per-lane cache view from the page pool.
+
+    pool (N_pages, page, K, hd); block_table (B, T) int page ids ->
+    (B, T*page, K, hd) where gathered index t IS logical position t.
+    Unallocated table slots (id 0 by convention) gather stale KV the
+    attention masks drop (queries never look past their own position).
+    """
+    b, t = block_table.shape
+    g = pool[block_table.long()]  # (B, T, page, K, hd)
+    return g.reshape(b, t * pool.shape[1], *pool.shape[2:])
+
+
+def paged_write_plan(page: int, block_table: torch.Tensor, positions: torch.Tensor) -> tuple:
+    """:func:`kv_write_plan` for the page pool: ``block_table`` (B, T) maps
+    ``positions`` (B, C) to pool slots (position t -> page ``bt[b, t //
+    page]``, offset ``t % page``); a position >= T*page is padding and
+    writes nothing.  Distinct (lane, entry) pairs target distinct slots: the
+    allocator never maps two writers to one page, and a lane's positions are
+    distinct by construction."""
+    t = block_table.shape[1]
+    positions = positions.long()
+    pi = positions.div(page, rounding_mode="floor").clamp(0, t - 1)
+    pages = torch.gather(block_table.long(), 1, pi)  # (B, C)
+    return kv_write_plan((pages * page + positions % page).reshape(-1),
+                      (positions < t * page).reshape(-1))
+
+
+def paged_write(pool: torch.Tensor, block_table: torch.Tensor, positions: torch.Tensor,
+                val: torch.Tensor) -> torch.Tensor:
+    """Write new KV entries through the block table into a copy of the pool.
+
+    pool (N_pages, page, K, hd); block_table (B, T); positions (B, C) logical
+    slots (>= T*page is padding: no write); val (B, C, K, hd).  Returns the
+    new pool; the one passed in is left as it was (the model's steps write
+    in place through :func:`paged_write_plan` and :func:`put_kv_`).
+    """
+    plan = paged_write_plan(pool.shape[1], block_table, positions)
+    return put_kv_(pool.clone(), plan, val)
+
+
+def paged_decode_attention(
+    params: Params,
+    x: torch.Tensor,
+    cfg,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    block_table: torch.Tensor,
+    pos: torch.Tensor,
+    write_plan: Optional[tuple] = None,
+):
+    """One decode step for one layer against the paged pool.
+
+    Same contract as :func:`decode_attention` but the cache is the global
+    (N_pages, page, K, hd) pool plus this batch's (B, T) block table; the new
+    token's KV is written through the table, then the lane's pages are
+    gathered back to the dense layout and attended exactly as the dense path.
+    Lanes with ``pos >= T*page`` (empty/pad lanes) write nothing.  The pool
+    is written in place (the reference returns a new one, which its jitted
+    callers donate) through ``write_plan``, :func:`paged_write_plan` of
+    ``pos[:, None]``, made here when not given.
+    """
+    b, _ = x.shape
+    dt = x.dtype
+    q = torch.einsum("bd,dhx->bhx", x, params["wq"].to(dt))
+    k = torch.einsum("bd,dkx->bkx", x, params["wk"].to(dt))
+    v = torch.einsum("bd,dkx->bkx", x, params["wv"].to(dt))
+    if "bq" in params:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    k = apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+
+    if write_plan is None:
+        write_plan = paged_write_plan(pool_k.shape[1], block_table, pos[:, None])
+    put_kv_(pool_k, write_plan, k[:, None])
+    put_kv_(pool_v, write_plan, v[:, None])
+    ck = gather_pages(pool_k, block_table)  # (B, T*page, K, hd)
+    cv = gather_pages(pool_v, block_table)
+
+    hd = cfg.head_dim
+    g = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, cfg.n_kv_heads, g, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qg, ck.float()) * hd ** -0.5
+    mask = torch.arange(ck.shape[1], device=x.device)[None] <= pos[:, None]  # (B, T*page)
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum("bkgs,bskh->bkgh", p, cv.float())
+    o = o / torch.clamp_min(p.sum(dim=-1)[..., None], 1e-30)
+    o = o.reshape(b, cfg.n_heads, hd).to(dt)
+    y = torch.einsum("bhx,hxd->bd", o, params["wo"].to(dt))
+    return y, pool_k, pool_v

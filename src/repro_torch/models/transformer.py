@@ -4,8 +4,9 @@ Port of ``repro.models.transformer``'s dense path.  Parameters are
 layer-stacked as in the reference (``params["layers"][name]`` has a leading
 ``n_layers`` axis); the layers run as a Python loop over that axis.  The
 reference's sharding pins are multi-device and are left out; MoE and the
-VLM frontend are queued in ROADMAP.md, as are ``lm_decode_chunk`` and the
-paged twins, which come with the serving engine.
+VLM frontend are queued in ROADMAP.md.  The serving engine's steps —
+chunked decode (``lm_decode_chunk``) and its paged twins — are plain torch
+ops, as the reference's are plain jnp.
 """
 from __future__ import annotations
 
@@ -88,10 +89,11 @@ def _block_prefill(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
     return x + y, (k, v)
 
 
-def _block_decode(cfg, p: Params, x: torch.Tensor, ck, cv, pos):
-    """Single-token decode block. x: (B,d)."""
+def _block_decode(cfg, p: Params, x: torch.Tensor, ck, cv, pos, plan):
+    """Single-token decode block. x: (B,d); the token's KV goes into ck/cv
+    in place through ``plan``."""
     xin = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-    h, ck, cv = attn.decode_attention(p["attn"], xin, cfg, ck, cv, pos)
+    h, ck, cv = attn.decode_attention(p["attn"], xin, cfg, ck, cv, pos, write_plan=plan)
     x = x + h
     y = mlps.mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
     return x + y, ck, cv
@@ -174,15 +176,155 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int, frontend
 def lm_decode_step(params: Params, cache: dict, tokens: torch.Tensor, pos: torch.Tensor, cfg):
     """One decode step.  tokens (B,) int, pos (B,) int -> (logits (B,V), cache).
 
-    The cache passed in is left as it was; the returned one is new.
+    The new token's KV is written into the cache passed in, which is
+    returned (the reference's jitted step donates its buffer the same way).
     """
     x = embed_tokens(params, tokens, cfg)
-    ks, vs = [], []
+    plan = attn.dense_write_plan(cache["k"].shape[2], pos[:, None])
     for i in range(cfg.n_layers):
-        x, ck, cv = _block_decode(cfg, layer_params(params["layers"], i), x,
-                                  cache["k"][i], cache["v"][i], pos)
-        ks.append(ck)
-        vs.append(cv)
+        x, _, _ = _block_decode(cfg, layer_params(params["layers"], i), x,
+                                cache["k"][i], cache["v"][i], pos, plan)
     x = rmsnorm(params["final_norm"], x[:, None, :], cfg.norm_eps)
     logits = lm_logits(params, x, cfg)[:, 0]
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# chunked decode (the serving engine's batched prefill step)
+# ---------------------------------------------------------------------------
+def _chunk_attention(q, cache_k, cache_v, positions, cfg):
+    """Chunk queries against the full KV cache with per-(lane, query) masks.
+
+    q (B,C,H,hd); cache_k/v (B,Smax,K,hd); positions (B,C) — key index t is
+    visible to query c of lane b iff t <= positions[b, c].  Pad queries
+    (positions == Smax) see everything and produce garbage the caller drops.
+    """
+    b, c, h, hd = q.shape
+    kh = cache_k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, c, kh, g, hd).float()
+    s = torch.einsum("bckgd,btkd->bckgt", qg, cache_k.float()) * hd ** -0.5
+    smax = cache_k.shape[1]
+    mask = (torch.arange(smax, device=q.device)[None, None, :]
+            <= positions[:, :, None])  # (B,C,Smax)
+    s = torch.where(mask[:, :, None, None, :], s, attn.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum("bckgt,btkd->bckgd", p, cache_v.float())
+    o = o / torch.clamp_min(p.sum(dim=-1)[..., None], 1e-30)
+    return o.reshape(b, c, h, hd).to(q.dtype)
+
+
+def _block_decode_chunk(cfg, p: Params, x: torch.Tensor, ck, cv, positions, plan):
+    """Chunked decode block: C new tokens per lane against one cache lane.
+
+    x (B,C,d); ck/cv (B,Smax,K,hd); positions (B,C).  Writes the chunk's KV
+    into the cache first (in place, through ``plan``), then attends — intra-chunk causality
+    falls out of the t <= positions mask because every chunk key already
+    sits in the cache at its own position.
+    """
+    xin = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    q, k, v = attn.qkv_proj(p["attn"], xin, cfg)
+    q = attn.apply_rope(q, positions, cfg.rope_theta)
+    k = attn.apply_rope(k, positions, cfg.rope_theta)
+    attn.put_kv_(ck, plan, k)
+    attn.put_kv_(cv, plan, v)
+    o = _chunk_attention(q, ck, cv, positions, cfg)
+    x = x + attn.out_proj(p["attn"], o, x.dtype)
+    y = mlps.mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
+    return x + y, ck, cv
+
+
+def lm_decode_chunk(params: Params, cache: dict, tokens: torch.Tensor,
+                    positions: torch.Tensor, cfg):
+    """Chunked batched prefill step: C tokens per lane in one call.
+
+    tokens (B,C) int; positions (B,C) int gives each token's cache index in
+    its own lane (lanes advance independently).  A position equal to Smax is
+    padding: nothing is written and that query's logits row is garbage the
+    caller ignores.  Returns (logits (B,C,V), cache) — exact continuation of
+    ``lm_decode_step`` semantics, C steps at a time.  The chunk's KV is
+    written into the cache passed in, which is returned.
+    """
+    x = embed_tokens(params, tokens, cfg)
+    plan = attn.dense_write_plan(cache["k"].shape[2], positions)
+    for i in range(cfg.n_layers):
+        x, _, _ = _block_decode_chunk(cfg, layer_params(params["layers"], i), x,
+                                      cache["k"][i], cache["v"][i], positions, plan)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_logits(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# paged decode: same maths, cache indirected through a block table
+# ---------------------------------------------------------------------------
+def _block_decode_paged(cfg, p: Params, x: torch.Tensor, pk, pv, block_table, pos, plan):
+    """Single-token decode block against the paged pool.  x: (B,d);
+    pk/pv (N_pages, page, K, hd); block_table (B, T); written through
+    ``plan`` in place."""
+    xin = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    h, pk, pv = attn.paged_decode_attention(p["attn"], xin, cfg, pk, pv, block_table, pos,
+                                            write_plan=plan)
+    x = x + h
+    y = mlps.mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
+    return x + y, pk, pv
+
+
+def _block_decode_chunk_paged(cfg, p: Params, x: torch.Tensor, pk, pv, block_table, positions,
+                              plan):
+    """Chunked decode block against the paged pool: C new tokens per lane.
+
+    Pool-write first (through the block table, in place by ``plan``), then gather the lane's pages
+    back to the dense layout and run the same chunk attention as the dense
+    path — intra-chunk causality falls out of the t <= positions mask exactly
+    as in :func:`_block_decode_chunk`.
+    """
+    xin = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    q, k, v = attn.qkv_proj(p["attn"], xin, cfg)
+    q = attn.apply_rope(q, positions, cfg.rope_theta)
+    k = attn.apply_rope(k, positions, cfg.rope_theta)
+    attn.put_kv_(pk, plan, k)
+    attn.put_kv_(pv, plan, v)
+    ck = attn.gather_pages(pk, block_table)  # (B, T*page, K, hd)
+    cv = attn.gather_pages(pv, block_table)
+    o = _chunk_attention(q, ck, cv, positions, cfg)
+    x = x + attn.out_proj(p["attn"], o, x.dtype)
+    y = mlps.mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
+    return x + y, pk, pv
+
+
+def lm_decode_chunk_paged(params: Params, cache: dict, block_table: torch.Tensor,
+                          tokens: torch.Tensor, positions: torch.Tensor, cfg):
+    """Paged twin of :func:`lm_decode_chunk`.
+
+    cache holds the global page pool {"k"/"v": (L, N_pages, page, K, hd)};
+    ``block_table`` (B, T) int maps each lane's logical positions to pages
+    (position t -> page ``bt[b, t // page]``, offset ``t % page``).  A
+    position >= T*page is padding: nothing is written and that row's logits
+    are garbage the caller ignores.  Exact vs the dense path: gathering a
+    lane's pages reproduces its dense cache bit-for-bit.  The pool passed in
+    is written in place and returned.
+    """
+    x = embed_tokens(params, tokens, cfg)
+    plan = attn.paged_write_plan(cache["k"].shape[2], block_table, positions)
+    for i in range(cfg.n_layers):
+        x, _, _ = _block_decode_chunk_paged(cfg, layer_params(params["layers"], i), x,
+                                            cache["k"][i], cache["v"][i], block_table,
+                                            positions, plan)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_logits(params, x, cfg), cache
+
+
+def lm_decode_step_paged(params: Params, cache: dict, block_table: torch.Tensor,
+                         tokens: torch.Tensor, pos: torch.Tensor, cfg):
+    """Paged twin of :func:`lm_decode_step`: one token per lane, KV gathered
+    through the block table, in place.  Lanes with ``pos >= T*page`` (empty
+    slots) write nothing and produce garbage logits the engine ignores."""
+    x = embed_tokens(params, tokens, cfg)
+    plan = attn.paged_write_plan(cache["k"].shape[2], block_table, pos[:, None])
+    for i in range(cfg.n_layers):
+        x, _, _ = _block_decode_paged(cfg, layer_params(params["layers"], i), x,
+                                      cache["k"][i], cache["v"][i], block_table, pos, plan)
+    x = rmsnorm(params["final_norm"], x[:, None, :], cfg.norm_eps)
+    logits = lm_logits(params, x, cfg)[:, 0]
+    return logits, cache

@@ -205,13 +205,21 @@ def test_baseline_cli_writes_where_it_is_told(tmp_path, capsys):
     assert capsys.readouterr().out.count("wrote ") == 2 * len(list((tmp_path / "t").iterdir()))
 
 
+# registered benchmarks with no baseline file: their rows pace on the host
+# (the serving engine's ticks over a reduced model), and two of four gated
+# --quick reruns on one card crossed the 75 % limit (PERF.md §6)
+UNGATED = ("serving[cuda]", "serving[torch]")
+
+
 def test_port_baselines_cover_every_ported_suite_from_an_h100():
     """``benchmarks/baselines_torch/``: schema v1, one file per registered
-    benchmark of the port (the [torch] variants too), written from a
+    benchmark of the port (the [torch] variants too) but the ones left out
+    of the gate on purpose (``UNGATED``, host-paced), written from a
     ``--quick`` run on the card, whose fingerprint names an H100."""
     table = tbl.load_baselines(PORT_BASELINES)
     files = sorted(p.stem for p in PORT_BASELINES.glob("*.json"))
-    assert files == trunner.select() and table
+    assert set(UNGATED) <= set(trunner.select())
+    assert files == [n for n in trunner.select() if n not in UNGATED] and table
     for p in PORT_BASELINES.glob("*.json"):
         doc = json.loads(p.read_text())
         env = doc["generated_from"]["env"]

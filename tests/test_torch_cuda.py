@@ -686,3 +686,163 @@ def test_paper_suite_runs_its_kernel(dev, name, kernel):
     assert _util.launch_counts().get(kernel, 0) > before
     assert recs and not any("skipped" in r.name for r in recs)
     assert all(np.isfinite(r.value) and r.value > 0 for r in recs if r.measured)
+
+
+# ---------------------------------------------------------------------------
+# the numerics guard over the hand kernels
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def h100_guard():
+    from repro_torch.kernels import guard
+
+    with guard.isolated(guard.GuardConfig(hw="nvidia-h100-sxm")):
+        yield guard
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_guard_shadow_is_clean_on_the_kernels(dev, h100_guard, dtype):
+    """Every guarded call of matmul, flash_attention and axpy on the card runs
+    the kernel, is shadowed by the torch oracle at the H100's tolerance, and
+    drifts nowhere."""
+    a, b = _rand((256, 192), dev, dtype, 1), _rand((192, 320), dev, dtype, 2)
+    q = _rand((2, 128, 8, 64), dev, dtype, 3)
+    k, v = _rand((2, 128, 2, 64), dev, dtype, 4), _rand((2, 128, 2, 64), dev, dtype, 5)
+    x, y = _rand((64, 512), dev, dtype, 6), _rand((64, 512), dev, dtype, 7)
+    before = dict(_util.launch_counts())
+    with tapi.kernel_policy(guard="shadow"):
+        tapi.matmul(a, b, out_dtype=torch.float32)
+        tapi.flash_attention(q, k, v)
+        tapi.axpy(x, y, 1.5)
+    torch.cuda.synchronize()
+    launched = {n for n, c in _util.launch_counts().items() if c > before.get(n, 0)}
+    assert {"flash_attention", "axpy"} <= launched and launched & {"matmul", "matmul_bf16",
+                                                                     "matmul_fp16"}
+    m = h100_guard.metrics()
+    assert m.checks == 3 and m.drift_events == m.faults == m.saturation_events == 0
+    assert m.sentinel_checks == 2 and not h100_guard.quarantined_ops()
+
+
+def test_guard_verify_sweep_runs_the_kernels(dev, h100_guard):
+    reports = h100_guard.verify_ops()
+    assert sorted(reports) == ["axpy", "flash_attention", "matmul"]
+    assert all(r.ok and r.backend == "cuda" for r in reports.values()), reports
+
+
+def test_guard_catches_injected_drift_on_the_card_and_revives(dev, h100_guard):
+    q = _rand((1, 256, 8, 256), dev, torch.bfloat16, 1)
+    k, v = _rand((1, 256, 1, 256), dev, torch.bfloat16, 2), _rand((1, 256, 1, 256), dev,
+                                                                  torch.bfloat16, 3)
+    h100_guard.inject_drift("flash_attention", scale=0.05)
+    with tapi.kernel_policy(guard="shadow"):
+        with pytest.raises(h100_guard.KernelDriftError):
+            tapi.flash_attention(q, k, v)
+        assert h100_guard.quarantined_ops() == ("flash_attention",)
+        tapi.flash_attention(q, k, v)  # served by the oracle while open
+    assert h100_guard.metrics().degraded_calls == 1
+    h100_guard.clear_drift("flash_attention")
+    assert h100_guard.probe("flash_attention")
+    h100_guard.revive("flash_attention")
+    assert not h100_guard.quarantined_ops()
+
+
+def test_int8_saturation_sentinel_on_the_card(dev, h100_guard):
+    """|a|@|b| past int32's max (127 * 127 * 140,000 > 2^31) raises before
+    the output is trusted; a small product passes sentinel and oracle."""
+    a = torch.full((16, 140_000), 127, dtype=torch.int8, device=dev)
+    b = torch.full((140_000, 16), 127, dtype=torch.int8, device=dev)
+    with tapi.kernel_policy(guard="shadow"):
+        with pytest.raises(h100_guard.SaturationError) as ei:
+            tapi.matmul(a, b, out_dtype=torch.int32)
+        ones = torch.ones((32, 64), dtype=torch.int8, device=dev)
+        out = tapi.matmul(ones, ones.t().contiguous(), out_dtype=torch.int32)
+    assert ei.value.fraction == 1.0 and torch.equal(out, torch.full_like(out, 64))
+    assert not h100_guard.quarantined_ops()
+
+
+def test_engine_on_the_card_dense_equals_paged_under_the_guard(dev, h100_guard):
+    """gemma-2b reduced on the card: the dense and paged engines give the same
+    tokens as the direct decode loop, with shadow checks clean."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    cfg = get_config("gemma-2b").reduced()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    prompts = [[int(t) for t in np.random.default_rng(i).integers(1, cfg.vocab_size, 5 + 3 * i)]
+               for i in range(4)]
+    outs = []
+    for page_size in (None, 4):
+        eng = ServeEngine(model, params, EngineConfig(n_slots=2, max_len=32, prefill_chunk=4,
+                                                      page_size=page_size, guard="shadow"))
+        ss = [eng.submit(p, 6) for p in prompts]
+        eng.run()
+        summ = eng.summary()
+        assert summ["guard_checks"] > 0 and summ["drift_events"] == 0 and not eng._degraded
+        outs.append([s.out for s in ss])
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("kind", ["fault", "drift"])
+def test_guard_serves_no_fallback_for_a_real_failure_on_the_card(dev, h100_guard, kind):
+    """A matmul whose native path really raises, or really drifts (the hand
+    kernel's result scaled), is never served by the oracle on the card, even
+    with ``degrade`` and ``on_drift="oracle"``: the call raises, and so does
+    the next one while the op is quarantined."""
+    h100_guard.configure(degrade=True, on_drift="oracle")
+    op = tapi.KernelOp("matmul")
+
+    def native(a, b):
+        if kind == "fault":
+            raise RuntimeError("kernel launch failed")
+        return matmul_cuda(a, b) * 1.5
+
+    op.bind("cuda", native)
+    op.bind("torch", ref.matmul_ref)
+    a, b = _rand((128, 128), dev, seed=1), _rand((128, 128), dev, seed=2)
+    with tapi.kernel_policy(guard="shadow"):
+        with pytest.raises(RuntimeError, match="kernel launch failed|kernel drift"):
+            op(a, b)
+        with pytest.raises(h100_guard.KernelGuardError, match="no torch fallback"):
+            op(a, b)
+    assert h100_guard.metrics().degraded_calls == 0
+
+
+def test_engine_on_the_card_reraises_a_real_step_failure(dev, h100_guard):
+    """On the card the engine's fallbacks take only injected failures: a real
+    step failure re-raises even with ``degrade``, and an injected one degrades
+    once, token-exact."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    cfg = get_config("gemma-2b").reduced()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    calls = [0]
+
+    def failing_step(*args):
+        calls[0] += 1
+        if calls[0] == 2:
+            raise RuntimeError("decode step failed")
+        return model.decode_step(*args)
+
+    conf = EngineConfig(n_slots=2, max_len=32, prefill_chunk=4, degrade=True)
+    eng = ServeEngine(dataclasses.replace(model, decode_step=failing_step), params, conf)
+    eng.submit([3, 4, 5], 6)
+    with pytest.raises(RuntimeError, match="decode step failed"):
+        eng.run()
+    assert not eng._degraded
+
+    conf = dataclasses.replace(conf, guard="shadow")
+    plain = ServeEngine(model, params, conf)
+    want = plain.submit([3, 4, 5], 6)
+    plain.run()
+    eng = ServeEngine(model, params, conf)
+    got = eng.submit([3, 4, 5], 6)
+    eng._inject_step_error = RuntimeError("injected step fault")
+    with pytest.warns(RuntimeWarning, match="degraded"):
+        eng.run()
+    assert eng._degraded and got.out == want.out

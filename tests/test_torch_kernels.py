@@ -213,8 +213,10 @@ def test_op_without_kernel_raises_on_cuda(op):
 def test_policy_rejects_unported_features_and_bad_tiles():
     with tapi.kernel_policy(autotune=True) as pol:  # ported: autotune resolves tiles
         assert pol.autotune
-    with pytest.raises(NotImplementedError, match="kernels/guard.py"):
-        with tapi.kernel_policy(guard="shadow"):
+    with tapi.kernel_policy(guard="shadow") as pol:  # ported: the numerics guard
+        assert pol.guard == "shadow"
+    with pytest.raises(ValueError, match="guard mode"):
+        with tapi.kernel_policy(guard="paranoid"):
             pass
     with pytest.raises(ValueError, match="unknown op"):
         with tapi.kernel_policy(tiles={"nope": {"bm": 1}}):

@@ -220,7 +220,13 @@ def test_model_api_surface():
     specs = model.cache_specs(2, 16)
     assert cache["k"].shape == specs["k"].shape == (tcfg.n_layers, 2, 16, 1, tcfg.head_dim)
     assert specs["k"].device.type == "meta" and cache["k"].device.type == "cpu"
-    assert model.decode_chunk is None and model.decode_step_paged is None
+    assert None not in (model.decode_chunk, model.init_paged_cache, model.paged_cache_specs,
+                        model.decode_step_paged, model.decode_chunk_paged)
+    pool = model.paged_cache_specs(5, 4)
+    assert pool["v"].shape == (tcfg.n_layers, 5, 4, 1, tcfg.head_dim)
+    assert pool["v"].device.type == "meta"
+    hybrid = build_model(tconfigs.get_config("zamba2-7b").reduced(), device="cpu")
+    assert hybrid.decode_chunk is None and hybrid.decode_step_paged is None
     toks = torch.from_numpy(_tokens(tcfg, (2, 6), 3))
     last, cache = model.prefill(params, {"tokens": toks}, 16)
     assert last.shape == (2, tcfg.padded_vocab) and torch.isfinite(last).all()

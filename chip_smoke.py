@@ -87,7 +87,31 @@ Phases, in order; any failure exits non-zero before the final line:
    their maximum); then one ``torch.profiler`` trace of a single
    dense decode step with 4 active lanes: its five longest device operations,
    the device's busy and idle share of the step, and the step's wall time;
-11. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
+11. the serving cluster (``repro_torch.serve.ClusterRouter``) over phase 10's
+   model, params and requests, 2 replicas on the card sharing one copy of
+   the params: (1) dense under ``least_loaded``, every token equal to phase
+   10's dense engine, requests per replica and the peak memory beside phase
+   10's printed; (2) paged with the prefix registered once through the
+   router under ``prefix_affinity``: the same tokens, every request on the
+   prefix's replica, reused prefix tokens > 0; (3) ``fail_replica(1)`` after
+   4 ticks of leg 1's workload: nothing lost, one manual failover; (4)
+   ``HealthConfig()`` at the reference's defaults, clean and then driven by
+   ``FaultInjector`` with ``serving_chaos._fault_plan()`` (paged): the crash
+   failed over by the heartbeat, the breaker half-open and closed again, the
+   NaN lane quarantined and retried, the kernel fault degrading once, the
+   straggler flags and EWMA inflations printed; (5) ``_guard_fault_plan()``
+   under ``guard="shadow"`` at the H100's tolerances: drift on ``matmul`` and
+   a fault on ``flash_attention`` each quarantined and revived by a clean
+   half-open probe, whose launches of the hand ``matmul`` and
+   ``flash_attention`` kernels are counted (> 0 each); (6)
+   ``repro_torch.launch.serve.main`` at full width (``LAUNCH_ARGV``, its own
+   params): 8 of 8 served.  Legs 3–5 resume requests through
+   ``decode_chunk``: a bf16 stream may differ from the reference only where
+   the reference's top-2 margin lies within that position's
+   ``decode_step``-vs-``decode_chunk`` distance and the leg's float32 twin is
+   identical (each flip printed); anything else fails.  Each leg prints its
+   wall time, tokens/s, TTFT and per-token p50/p99;
+12. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Rates used for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s HBM,
@@ -96,6 +120,7 @@ them, 1,979 TFLOP/s (TOP/s) fp8 and int8.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -181,6 +206,13 @@ AXPY_SWEEP_SHAPE = (32768, 2048)  # Fig 1.1's sweep: 256 MiB of fp32 an array
 # phase 10: the serving engine at gemma-2b's full width
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW, SERVE_CHUNK = 8, 4, 32, 128
 SERVE_PROMPT_LENS, SERVE_PREFIX, SERVE_MAX_LEN, SERVE_PAGE = (200, 1000), 128, 1056, 16
+# phase 11: the serving cluster at full width
+CLUSTER_REPLICAS, CLUSTER_FAIL_AFTER = 2, 4  # replicas; ticks before leg 3 fails replica 1
+CARD_HW = "nvidia-h100-sxm"
+LAUNCH_ARGV = ["--arch", "gemma-2b", "--requests", "8", "--prompt-len", "64", "--max-new", "16",
+               "--slots", "4", "--max-len", "256", "--prefill-chunk", "64", "--replicas", "2",
+               "--health", "--chaos", "--chaos-seed", "7", "--page-size", "16",
+               "--shared-prefix", "32"]
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -1667,9 +1699,24 @@ def device_busy_us(events) -> float:
     return busy
 
 
-def serving_path(torch, dev, cfg, model, params) -> dict:
-    """Phase 10: the serving engine at full width (see the module docstring)."""
+def serve_prompts(cfg) -> tuple:
+    """Phases 10 and 11's requests: SERVE_REQUESTS prompts of SERVE_PROMPT_LENS
+    tokens from numpy seed 0, each opening with one shared SERVE_PREFIX-token
+    prefix; returns (prompts, prefix)."""
     import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPT_LENS[0], SERVE_PROMPT_LENS[1] + 1, SERVE_REQUESTS)
+    prefix = [int(t) for t in rng.integers(1, cfg.vocab_size, SERVE_PREFIX)]
+    prompts = [prefix + [int(t) for t in rng.integers(1, cfg.vocab_size, n - SERVE_PREFIX)]
+               for n in lens]
+    return prompts, prefix
+
+
+def serving_path(torch, dev, cfg, model, params) -> tuple:
+    """Phase 10: the serving engine at full width (see the module docstring).
+    Returns the launch counts and the dense engine's results (its tokens are
+    phase 11's reference)."""
     from torch.autograd import DeviceType
 
     from repro_torch.core.timing import percentile
@@ -1677,11 +1724,7 @@ def serving_path(torch, dev, cfg, model, params) -> dict:
     from repro_torch.serve import EngineConfig, ServeEngine
 
     phase_start = time.perf_counter()
-    rng = np.random.default_rng(0)
-    lens = rng.integers(SERVE_PROMPT_LENS[0], SERVE_PROMPT_LENS[1] + 1, SERVE_REQUESTS)
-    prefix = [int(t) for t in rng.integers(1, cfg.vocab_size, SERVE_PREFIX)]
-    prompts = [prefix + [int(t) for t in rng.integers(1, cfg.vocab_size, n - SERVE_PREFIX)]
-               for n in lens]
+    prompts, prefix = serve_prompts(cfg)
     base = dict(n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK,
                 guard="sample", degrade=False)
     results, engines = {}, {}
@@ -1793,6 +1836,347 @@ def serving_path(torch, dev, cfg, model, params) -> dict:
     if not dev_events:
         raise AssertionError("serving: the profiler saw no device operation in the decode step")
     print(f"serving: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
+    return counts, results["dense"]
+
+
+# phase 11: the serving cluster at full width
+
+
+def leg_timing(torch, cluster, sessions, wall) -> dict:
+    """A cluster leg's wall time, tokens/s and pooled TTFT / per-token
+    percentiles (p99 over 8 requests is their maximum: smoke readings)."""
+    from repro_torch.core.timing import percentile
+
+    ttft = [t for r in cluster.replicas for t in r.engine.metrics.ttft_s]
+    gaps = [g for r in cluster.replicas for g in r.engine.metrics.token_latency_s]
+    generated = sum(len(s.out) for s in sessions)
+    return {"wall_s": wall, "tok_s": generated / wall,
+            "ttft_ms_p50": percentile(ttft, 50) * 1e3, "ttft_ms_p99": percentile(ttft, 99) * 1e3,
+            "tok_latency_ms_p50": percentile(gaps, 50) * 1e3,
+            "tok_latency_ms_p99": percentile(gaps, 99) * 1e3}
+
+
+def lane_logits(torch, model, params, feed, steps, dev):
+    """The logits row after ``feed`` (prefilled through ``decode_chunk``,
+    SERVE_CHUNK tokens a call) and then ``steps`` fed one at a time through
+    ``decode_step``, with the request in lane 0 of SERVE_SLOTS lanes (the
+    others padded), as an engine tick computes it."""
+    cache = model.init_cache(SERVE_SLOTS, SERVE_MAX_LEN)
+    width = -(-len(feed) // SERVE_CHUNK) * SERVE_CHUNK
+    toks = torch.zeros((SERVE_SLOTS, width), dtype=torch.int32)
+    poss = torch.full((SERVE_SLOTS, width), SERVE_MAX_LEN, dtype=torch.int32)
+    toks[0, :len(feed)] = torch.tensor(feed, dtype=torch.int32)
+    poss[0, :len(feed)] = torch.arange(len(feed), dtype=torch.int32)
+    for c in range(0, width, SERVE_CHUNK):
+        logits, cache = model.decode_chunk(params, cache, toks[:, c:c + SERVE_CHUNK].to(dev),
+                                           poss[:, c:c + SERVE_CHUNK].to(dev))
+        if c < len(feed) <= c + SERVE_CHUNK:
+            row = logits[0, len(feed) - 1 - c]
+    pad = torch.full((SERVE_SLOTS,), SERVE_MAX_LEN, dtype=torch.int32)
+    for i, t in enumerate(steps):
+        tok = torch.zeros((SERVE_SLOTS,), dtype=torch.int32)
+        tok[0] = t
+        pos = pad.clone()
+        pos[0] = len(feed) + i
+        logits, cache = model.decode_step(params, cache, tok.to(dev), pos.to(dev))
+        row = logits[0]
+    return row.float()
+
+
+def flip_report(torch, model, params, prompt, want, got, dev) -> dict:
+    """Where a served stream first differs from the reference: the position,
+    both tokens, the top-2 logit margin there on the ``decode_step`` route
+    (the uninterrupted run's) and on the ``decode_chunk`` route (a resumed
+    run re-prefills prompt + output through it), and the two routes'
+    largest logit distance at that position."""
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    step = (lane_logits(torch, model, params, prompt, want[:j], dev) if j
+            else lane_logits(torch, model, params, prompt, [], dev))
+    chunk = lane_logits(torch, model, params, prompt + want[:j], [], dev)
+
+    def margin(row):
+        top = torch.topk(row, 2).values
+        return float(top[0] - top[1])
+
+    return {"position": j, "want": want[j], "got": got[j], "margin_step": margin(step),
+            "margin_chunk": margin(chunk),
+            "step_vs_chunk_max_abs": float((step - chunk).abs().max())}
+
+
+def identity(torch, leg, got, want, model, params, prompts, dev, twin=None) -> str:
+    """The identity rule of phase 11: every stream equals the reference.  A
+    leg that resumed requests through ``decode_chunk`` (``twin`` given) may
+    differ in bf16 only where the reference's top-2 margin lies within the
+    step-vs-chunk distance at that position, and only if its float32 twin
+    (``twin()`` -> (got, want) in float32 compute) is identical; each flip is
+    printed.  Anything else fails the run."""
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if not bad and len(got) == len(want):
+        return "identical"
+    reports = {i: flip_report(torch, model, params, prompts[i], want[i], got[i], dev)
+               for i in bad}
+    print(f"cluster {leg}: bf16 streams differ from the reference: " + json.dumps(reports),
+          flush=True)
+    if twin is None:
+        raise AssertionError(f"cluster {leg}: token streams differ: {reports}")
+    got32, want32 = twin()
+    if got32 != want32:
+        raise AssertionError(f"cluster {leg}: the float32 twin differs too")
+    loose = {i: r for i, r in reports.items() if r["margin_step"] > r["step_vs_chunk_max_abs"]}
+    if loose:
+        raise AssertionError(f"cluster {leg}: flips past the step-vs-chunk distance: {loose}")
+    print(f"cluster {leg}: float32 twin identical; every bf16 flip within the "
+          f"step-vs-chunk distance (kept deviation)", flush=True)
+    return "bf16 flips within the step-vs-chunk distance; float32 twin identical"
+
+
+@contextlib.contextmanager
+def straggler_watch():
+    """Record, while open, every straggler flag any ``StragglerDetector``
+    raises and each worker's largest EWMA inflation over the fleet median
+    (the ratio the cluster's threshold is held against)."""
+    from repro_torch.ft import StragglerDetector
+
+    log = {"flags": [], "max_inflation": {}}
+    real = StragglerDetector.stragglers
+
+    def stragglers(det):
+        med = det.fleet_median()
+        for w, v in det._ewma.items():
+            if med:
+                log["max_inflation"][w] = max(log["max_inflation"].get(w, 0.0), v / med)
+        out = real(det)
+        if out:
+            log["flags"].append(out)
+        return out
+
+    StragglerDetector.stragglers = stragglers
+    try:
+        yield log
+    finally:
+        StragglerDetector.stragglers = real
+
+
+def cluster_path(torch, dev, cfg, model, params, single) -> dict:
+    """Phase 11: the serving cluster at full width (see the module docstring).
+    ``single`` is phase 10's dense engine: its tokens are the reference."""
+    import io
+
+    from repro_torch.bench.suites.serving_chaos import _fault_plan, _guard_fault_plan
+    from repro_torch.kernels import _util, guard
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import build_model
+    from repro_torch.serve import (ClusterConfig, ClusterRouter, EngineConfig, FaultInjector,
+                                   HealthConfig, ServeEngine)
+    from repro_torch.serve.cluster import BREAKER_CLOSED
+
+    phase_start = time.perf_counter()
+    prompts, prefix = serve_prompts(cfg)
+    want = single["tokens"]
+    # the cuda backend (the card's default) named, so injected step faults fire
+    base = dict(n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK,
+                backend="cuda")
+    counts: dict = {}
+
+    def serve(leg, ccfg, *, m=model, plan=None, before=None, register=False):
+        """Submit every prompt, run (through ``plan``'s injector when given)
+        and check that every request finished."""
+        cluster = ClusterRouter(m, params, ccfg)
+        if register:
+            cluster.register_prefix(prefix)
+        t0 = time.perf_counter()
+        sessions = [cluster.submit(p, SERVE_NEW) for p in prompts]
+        if before is not None:
+            before(cluster)
+        injector = FaultInjector(plan, cluster) if plan is not None else None
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # the chaos legs' degrade notes
+            if injector is not None:
+                injector.run()
+            else:
+                cluster.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        reasons = [s.finish_reason for s in sessions]
+        if reasons != ["max_new_tokens"] * len(prompts):
+            raise AssertionError(f"cluster {leg}: not every request finished: {reasons}")
+        return cluster, sessions, injector, wall
+
+    def report(leg, cluster, sessions, wall, keys=(), **extra):
+        """Print a leg's timings, placement, failovers and the summary's
+        ``keys``; returns the summary."""
+        s = cluster.summary()
+        row = {**leg_timing(torch, cluster, sessions, wall),
+               "requests_per_replica": [r["requests"] for r in s["per_replica"]],
+               "failovers": s["failovers"], "requeues": s["requeues"],
+               **{k: s[k] for k in keys}, **extra}
+        print(f"cluster {leg}: " + json.dumps(row), flush=True)
+        return s
+
+    def twin(leg_fn):
+        """Float32 compute over the same params: the leg and one engine."""
+        m32 = build_model(cfg.replace(dtype="float32"), device=dev)
+        eng = ServeEngine(m32, params, EngineConfig(**base))
+        ref = [eng.submit(p, SERVE_NEW) for p in prompts]
+        eng.run()
+        return [s.out for s in leg_fn(m32)], [s.out for s in ref]
+
+    identities = {}  # leg -> what the identity rule found
+    with torch.inference_mode():
+        # leg 1: two dense replicas under least_loaded equal one engine
+        torch.cuda.reset_peak_memory_stats()
+        dense = ClusterConfig(engine=EngineConfig(**base), n_replicas=CLUSTER_REPLICAS)
+        cluster, sessions, _, wall = serve("leg 1 (dense, least_loaded)", dense)
+        peak = torch.cuda.max_memory_allocated()
+        shared = all(r.engine.params is params and r.engine.model is model
+                     for r in cluster.replicas)
+        s1 = report("leg 1 (dense, least_loaded)", cluster, sessions, wall,
+                    max_memory_allocated_gb=peak / 1e9,
+                    phase10_max_memory_allocated_gb=single["max_memory_allocated"] / 1e9,
+                    phase10_tok_s=single["throughput_tok_s"], params_shared=shared)
+        identities["leg 1"] = identity(torch, "leg 1", [x.out for x in sessions], want, model,
+                                       params, prompts, dev)
+        per = [r["requests"] for r in s1["per_replica"]]
+        if not shared or sum(per) != SERVE_REQUESTS or min(per) == 0:
+            raise AssertionError(f"cluster leg 1: requests per replica {per}, "
+                                 f"params shared {shared}")
+
+        # leg 2: paged, the prefix registered once, prefix affinity
+        paged = ClusterConfig(engine=EngineConfig(**base, page_size=SERVE_PAGE),
+                              n_replicas=CLUSTER_REPLICAS, router="prefix_affinity")
+        cluster, sessions, _, wall = serve("leg 2", paged, register=True)
+        placed = {cluster._placement[x.rid] for x in sessions}
+        s2 = report("leg 2 (paged, prefix_affinity)", cluster, sessions, wall,
+                    ("prefix_tokens_reused", "prefix_hits"), replicas_used=sorted(placed))
+        identities["leg 2"] = identity(torch, "leg 2", [x.out for x in sessions], want, model,
+                                       params, prompts, dev)
+        if s2["prefix_tokens_reused"] <= 0 or s2["prefix_hits"] <= 0 or placed != {0}:
+            raise AssertionError(f"cluster leg 2: prefix reuse {s2['prefix_tokens_reused']}, "
+                                 f"hits {s2['prefix_hits']}, replicas {placed}")
+
+        # leg 3: replica 1 fails after CLUSTER_FAIL_AFTER ticks
+        def fail_one(cluster):
+            for _ in range(CLUSTER_FAIL_AFTER):
+                cluster.step()
+            cluster.fail_replica(1)
+
+        def leg3(m):
+            return serve("leg 3", dense, m=m, before=fail_one)[1]
+
+        cluster, sessions, _, wall = serve("leg 3", dense, before=fail_one)
+        s3 = report("leg 3 (fail_replica(1) after 4 ticks)", cluster, sessions, wall,
+                    ("requeued_sessions",))
+        identities["leg 3"] = identity(torch, "leg 3", [x.out for x in sessions], want, model,
+                                       params, prompts, dev, twin=lambda: twin(leg3))
+        if s3["failovers"] != {"manual": 1} or not s3["requeued_sessions"]:
+            raise AssertionError(f"cluster leg 3: {s3['failovers']}, {s3['requeued_sessions']}")
+
+        # leg 4: health at the reference's defaults, clean and under _fault_plan()
+        health = ClusterConfig(engine=EngineConfig(**base, page_size=SERVE_PAGE, degrade=True),
+                               n_replicas=CLUSTER_REPLICAS, router="round_robin",
+                               health=HealthConfig())
+        flags = {}
+        for run, plan in (("clean", None), ("faulted", _fault_plan())):
+            def leg4(m, plan=plan):
+                return serve(f"leg 4 {run}", health, m=m, plan=plan)[1]
+
+            with straggler_watch() as log:
+                cluster, sessions, injector, wall = serve(f"leg 4 {run}", health, plan=plan)
+            s4 = report(f"leg 4 {run} (HealthConfig())", cluster, sessions, wall,
+                        ("availability", "quarantines", "nan_events", "degradations",
+                         "half_opens", "revivals"),
+                        straggler_flags=log["flags"], max_inflation=log["max_inflation"],
+                        injector=injector.summary() if injector else None)
+            flags[run] = log
+            identities[f"leg 4 {run}"] = identity(
+                torch, f"leg 4 {run}", [x.out for x in sessions], want, model, params,
+                prompts, dev, twin=lambda leg4=leg4: twin(leg4))
+            if run == "faulted":
+                inj = injector.summary()
+                if (s4["failovers"].get("heartbeat") != 1 or s4["half_opens"] < 1
+                        or s4["revivals"] < 1
+                        or cluster.replicas[0].breaker != BREAKER_CLOSED
+                        or s4["quarantines"] != 1 or s4["nan_events"] != 1
+                        or s4["degradations"] != 1
+                        or inj["applied"] != {"crash": 1, "straggler": 1, "kernel_fault": 1,
+                                              "kernel_drift": 0, "nan_logits": 1,
+                                              "page_pressure": 1}):
+                    raise AssertionError(f"cluster leg 4 faulted: {s4}, injector {inj}")
+
+        # leg 5: the guarded legs' plan on the card; revival probes run the kernels
+        guarded = ClusterConfig(
+            engine=EngineConfig(**base, degrade=True, guard="shadow", guard_cooldown=2),
+            n_replicas=CLUSTER_REPLICAS, router="round_robin",
+            health=HealthConfig(heartbeat_timeout=2, min_samples=3, margin=0.25, cooldown=6,
+                                warmup_ticks=6, straggler=False))
+        revival_launches: dict = {}
+        real_probe = guard.probe
+
+        def probe(op):
+            before = _util.launch_counts()
+            ok = real_probe(op)
+            torch.cuda.synchronize()
+            after = _util.launch_counts()
+            for k, v in after.items():
+                if v > before.get(k, 0):
+                    revival_launches.setdefault(op, {})
+                    revival_launches[op][k] = revival_launches[op].get(k, 0) + v - before.get(k, 0)
+            return ok
+
+        with guard.isolated(guard.GuardConfig(hw=CARD_HW)):
+            _util.reset_launch_counts()
+            guard.probe = probe
+            try:
+                cluster, sessions, injector, wall = serve("leg 5", guarded,
+                                                          plan=_guard_fault_plan())
+            finally:
+                guard.probe = real_probe
+            torch.cuda.synchronize()
+            add_counts(counts, _util.launch_counts())
+            gm = guard.metrics().summary()
+            quarantined = guard.quarantined_ops()
+        drift_calls = sum(r.engine._injected_drift_calls for r in cluster.replicas)
+        summ = report("leg 5 (guarded, _guard_fault_plan())", cluster, sessions, wall,
+                      ("drift_events", "op_degradations", "op_revivals", "degradations"),
+                      injected_drift=drift_calls, guard=gm,
+                      revival_probe_launches=revival_launches, launches=dict(counts))
+        identities["leg 5"] = identity(torch, "leg 5", [x.out for x in sessions], want, model,
+                                   params, prompts, dev)
+        if (drift_calls < 1 or summ["drift_events"] != drift_calls
+                or set(gm["quarantined_ops"]) != {"matmul", "flash_attention"}
+                or summ["op_degradations"] != 2 or summ["op_revivals"] != 2
+                or summ["degradations"] or quarantined
+                or revival_launches.get("matmul", {}).get("matmul", 0) <= 0
+                or revival_launches.get("flash_attention", {}).get("flash_attention", 0) <= 0):
+            raise AssertionError(f"cluster leg 5: {summ}, launches {revival_launches}")
+        del cluster, sessions, injector
+
+    # leg 6: the launcher at full width, in-process, with its own params
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), torch.inference_mode(), straggler_watch() as log:
+        finished = launcher.main(LAUNCH_ARGV)
+    flags["launcher"] = log
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    for ln in lines:
+        print(f"cluster leg 6 (launcher): {ln}", flush=True)
+    heads = {ln.split(":")[0] for ln in lines}
+    print(f"cluster leg 6 (launcher): python -m repro_torch.launch.serve {' '.join(LAUNCH_ARGV)}: "
+          f"{len(finished)} finished in {wall:.1f} s (params made on the card included)",
+          flush=True)
+    if (len(finished) != 8 or any(x.finish_reason != "max_new_tokens" for x in finished)
+            or not {"cluster", "chaos", "robustness"} <= heads):
+        raise AssertionError(f"cluster leg 6: {len(finished)} finished, lines {lines}")
+    del finished
+    torch.cuda.empty_cache()
+    print(f"cluster: tokens against phase 10's dense engine: {json.dumps(identities)}",
+          flush=True)
+    print(f"cluster: straggler flags and largest EWMA inflations (leg 4 clean, leg 4 "
+          f"faulted, the launcher; threshold 1.1215): {json.dumps(flags)}", flush=True)
+    print(f"cluster: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
     return counts
 
 
@@ -1862,7 +2246,11 @@ def main() -> int:
     torch.cuda.empty_cache()  # zamba2's params are gone; gemma-2b's come back
     cfg, model, params = gemma_full(torch, dev)
     add_counts(counts, guard_path(torch, dev, cfg, model, params))
-    add_counts(counts, serving_path(torch, dev, cfg, model, params))
+    torch.cuda.reset_peak_memory_stats()
+    serving_counts, single = serving_path(torch, dev, cfg, model, params)
+    single["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    add_counts(counts, serving_counts)
+    add_counts(counts, cluster_path(torch, dev, cfg, model, params, single))
     del params
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)

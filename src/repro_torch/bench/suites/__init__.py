@@ -15,9 +15,8 @@ Paper map (table/figure -> registered name):
     Fig 4.3-4.5        throttle    power/thermal clock governor
     Ch. 3+4 (whole)    dissect     probe suite -> fitted HardwareModel
     Ch.1 + Fig 4.3     serving     serving engine under sustained load
-
-The reference's ``serving_chaos`` and ``serving_scaled`` wait for the port
-of the serving cluster and its fault layer (ROADMAP.md §1 item 8).
+    Ch.1               serving_scaled  serving cluster over a device sweep
+    §4.5               serving_chaos   cluster goodput/availability under faults
 """
 from . import (  # noqa: F401  (import side effect: registration)
     atomics,
@@ -30,5 +29,7 @@ from . import (  # noqa: F401  (import side effect: registration)
     memhier,
     scheduler,
     serving,
+    serving_chaos,
+    serving_scaled,
     throttle,
 )

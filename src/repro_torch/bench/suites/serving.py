@@ -24,7 +24,8 @@ reference's are plain jnp) and launch no hand kernel, so on this port the
 two variants run the same computation: ``backend`` changes only the policy
 around the steps, and their rows can differ only by host noise.  Both stay
 registered for the reference's record names, and start to differ once a
-step launches a hand kernel (ROADMAP.md §1 item 8).  On a CPU device
+step launches a hand kernel (CUDA-graph capture, still queued under
+ROADMAP.md §1 item 8).  On a CPU device
 ``serving[cuda]`` gives one ``serving_skipped`` row, as every ``[cuda]``
 variant does.
 """

@@ -46,7 +46,7 @@ def mlp(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 
 def _moe_queued(*_args, **_kwargs):
     raise NotImplementedError(
-        "the MoE block is not ported yet (queued in ROADMAP.md, module item 11)"
+        "the MoE block is not ported yet (queued in ROADMAP.md §1, item 5)"
     )
 
 

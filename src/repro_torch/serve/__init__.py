@@ -11,18 +11,34 @@ page pool (``PageAllocator``) with continuous batching, recompute
 preemption, and copy-on-write shared prefixes
 (``ServeEngine.register_prefix``) — see docs/serving.md.
 
+``ClusterRouter`` + ``ClusterConfig`` scale the same surface out: a
+data-parallel replica router with pluggable placement policies (extensible
+via ``register_router``), pooled ``ClusterMetrics``, and replica-failure
+drain/requeue.  Tensor-parallel replicas (``ClusterConfig.tp > 1``) wait for
+the port's distribution layer (ROADMAP.md §1 item 11).
+
 Robustness: per-request deadlines (``submit(deadline_s=)``), a budgeted
 requeue path with exponential backoff (``RetryBudgetExceeded``), NaN-guard
 lane quarantine, per-op quarantine by the numerics guard
-(``EngineConfig.guard``) and graceful cuda->torch degradation.
-
-Not ported yet (ROADMAP.md §1 item 8): the cluster and its router
-(``ClusterRouter``, ``ClusterConfig``, ``HealthConfig``, ``Replica``,
-``RouterPolicy``, ``RoundRobinPolicy``, ``LeastLoadedPolicy``,
-``PrefixAffinityPolicy``, ``ROUTERS``, ``make_router``, ``register_router``,
-``replica_meshes``) and the chaos layer (``Fault``, ``FaultPlan``,
-``FaultInjector``).  ``ClusterMetrics`` is here already.
+(``EngineConfig.guard``), graceful cuda->torch degradation, health-driven
+failover with a circuit breaker (``ClusterConfig.health`` /
+``HealthConfig``), and the deterministic chaos layer in
+``repro_torch.serve.faults`` (``FaultPlan`` / ``FaultInjector``).
 """
+from .cluster import (
+    ROUTERS,
+    ClusterConfig,
+    ClusterRouter,
+    HealthConfig,
+    LeastLoadedPolicy,
+    PrefixAffinityPolicy,
+    Replica,
+    RoundRobinPolicy,
+    RouterPolicy,
+    make_router,
+    register_router,
+    replica_meshes,
+)
 from .engine import (
     SERVABLE_FAMILIES,
     EngineConfig,
@@ -31,6 +47,7 @@ from .engine import (
     ServeEngine,
     UnsupportedFamilyError,
 )
+from .faults import Fault, FaultInjector, FaultPlan
 from .metrics import ClusterMetrics, EngineMetrics
 from .paging import PageAllocator, PagePoolExhausted, SharedPrefix
 from .sampler import greedy, temperature_sample, top_k_sample
@@ -45,18 +62,30 @@ from .scheduler import (
 from .session import RequestStats, Session
 
 __all__ = [
+    "ROUTERS",
     "SCHEDULERS",
     "SERVABLE_FAMILIES",
+    "ClusterConfig",
     "ClusterMetrics",
+    "ClusterRouter",
     "EngineConfig",
     "EngineMetrics",
     "FCFSScheduler",
+    "Fault",
+    "FaultInjector",
+    "FaultPlan",
+    "HealthConfig",
+    "LeastLoadedPolicy",
     "PageAllocator",
     "PagePoolExhausted",
+    "PrefixAffinityPolicy",
     "PriorityScheduler",
+    "Replica",
     "ReplicaCrashed",
     "RequestStats",
     "RetryBudgetExceeded",
+    "RoundRobinPolicy",
+    "RouterPolicy",
     "Scheduler",
     "ServeEngine",
     "Session",
@@ -64,7 +93,10 @@ __all__ = [
     "StaticBatchScheduler",
     "UnsupportedFamilyError",
     "greedy",
+    "make_router",
     "make_scheduler",
+    "register_router",
+    "replica_meshes",
     "temperature_sample",
     "top_k_sample",
 ]

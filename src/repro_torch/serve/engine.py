@@ -21,7 +21,8 @@ between kernel paths — ``backend``, ``autotune``, ``degrade``, ``guard``,
 re-binding behind them choose between identical computations: a shadow
 check compares torch with torch.  They are kept for the reference's API and
 its fault-injection tests, and start to matter once a step launches a hand
-kernel (a CUDA-graph-captured or kernel-routed step, ROADMAP.md §1 item 8).
+kernel (a CUDA-graph-captured or kernel-routed step, still queued under
+ROADMAP.md §1 item 8 as CUDA-graph capture).
 The steps update the KV cache in place (the reference donates its buffer);
 a shadow-checked tick hands the torch twin its own copy of the cache.
 

@@ -206,9 +206,11 @@ def test_baseline_cli_writes_where_it_is_told(tmp_path, capsys):
 
 
 # registered benchmarks with no baseline file: their rows pace on the host
-# (the serving engine's ticks over a reduced model), and two of four gated
-# --quick reruns on one card crossed the 75 % limit (PERF.md §6)
-UNGATED = ("serving[cuda]", "serving[torch]")
+# (the serving engine's ticks over a reduced model, one engine or a cluster
+# of them), and two of four gated --quick reruns of serving on one card
+# crossed the 75 % limit (PERF.md §6)
+UNGATED = tuple(f"{name}[{b}]" for name in ("serving", "serving_chaos", "serving_scaled")
+                for b in ("cuda", "torch"))
 
 
 def test_port_baselines_cover_every_ported_suite_from_an_h100():

@@ -846,3 +846,111 @@ def test_engine_on_the_card_reraises_a_real_step_failure(dev, h100_guard):
     with pytest.warns(RuntimeWarning, match="degraded"):
         eng.run()
     assert eng._degraded and got.out == want.out
+
+
+# ---------------------------------------------------------------------------
+# the serving cluster on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def gemma_card(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("gemma-2b").reduced()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    prompts = [[int(t) for t in np.random.default_rng(i).integers(1, cfg.vocab_size, 5 + 3 * i)]
+               for i in range(6)]
+    return model, params, prompts
+
+
+def _one_engine(model, params, prompts, **kw):
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    eng = ServeEngine(model, params, EngineConfig(n_slots=2, max_len=32, prefill_chunk=4, **kw))
+    ss = [eng.submit(p, 8) for p in prompts]
+    eng.run()
+    return [s.out for s in ss]
+
+
+@pytest.mark.parametrize("page_size", [None, 4])
+def test_cluster_on_the_card_equals_one_engine(gemma_card, page_size):
+    from repro_torch.serve import ClusterConfig, ClusterRouter, EngineConfig
+
+    model, params, prompts = gemma_card
+    cluster = ClusterRouter(model, params, ClusterConfig(
+        engine=EngineConfig(n_slots=2, max_len=32, prefill_chunk=4, page_size=page_size),
+        n_replicas=2))
+    ss = [cluster.submit(p, 8) for p in prompts]
+    cluster.run()
+    assert [s.out for s in ss] == _one_engine(model, params, prompts, page_size=page_size)
+    assert [r["requests"] for r in cluster.summary()["per_replica"]] == [3, 3]
+    assert all(r.engine.params is params for r in cluster.replicas)  # one copy on the card
+
+
+def test_cluster_crash_heartbeat_failover_on_the_card_is_token_exact(gemma_card):
+    from repro_torch.serve import (ClusterConfig, ClusterRouter, EngineConfig, Fault,
+                                   FaultInjector, FaultPlan, HealthConfig)
+
+    model, params, prompts = gemma_card
+    cluster = ClusterRouter(model, params, ClusterConfig(
+        engine=EngineConfig(n_slots=2, max_len=32, prefill_chunk=4), n_replicas=2,
+        router="round_robin",
+        health=HealthConfig(heartbeat_timeout=2, straggler=False, cooldown=50)))
+    ss = [cluster.submit(p, 8) for p in prompts]
+    FaultInjector(FaultPlan(faults=(Fault(tick=2, kind="crash", replica=0, duration=30),)),
+                  cluster).run()
+    assert cluster.summary()["failovers"] == {"heartbeat": 1}
+    assert [s.out for s in ss] == _one_engine(model, params, prompts)
+
+
+def test_guarded_chaos_on_the_card_revives_through_the_kernels(gemma_card, h100_guard,
+                                                               monkeypatch):
+    """``serving_chaos``'s guard plan: drift on matmul, then a fault on
+    flash_attention; both quarantined and revived by half-open probes that
+    launch the hand kernels, tokens exact."""
+    from repro_torch.bench.suites.serving_chaos import _guard_fault_plan
+    from repro_torch.serve import (ClusterConfig, ClusterRouter, EngineConfig, FaultInjector,
+                                   HealthConfig)
+
+    model, params, prompts = gemma_card
+    launched: dict = {}
+    real = h100_guard.probe
+
+    def probe(op):
+        before = _util.launch_counts().get(op, 0)
+        ok = real(op)
+        torch.cuda.synchronize()
+        launched[op] = launched.get(op, 0) + _util.launch_counts().get(op, 0) - before
+        return ok
+
+    monkeypatch.setattr(h100_guard, "probe", probe)
+    cluster = ClusterRouter(model, params, ClusterConfig(
+        engine=EngineConfig(n_slots=2, max_len=32, prefill_chunk=4, degrade=True,
+                            guard="shadow", guard_cooldown=2),
+        n_replicas=2, router="round_robin",
+        health=HealthConfig(heartbeat_timeout=2, straggler=False, cooldown=6)))
+    ss = [cluster.submit(p, 8) for p in prompts]
+    with pytest.warns(RuntimeWarning, match="quarantined"):
+        FaultInjector(_guard_fault_plan(), cluster).run()
+    summ = cluster.summary()
+    assert summ["op_degradations"] == 2 and summ["op_revivals"] == 2
+    assert summ["degradations"] == 0 and summ["drift_events"] >= 1
+    assert launched.get("matmul", 0) > 0 and launched.get("flash_attention", 0) > 0
+    assert set(h100_guard.metrics().quarantined_ops) == {"matmul", "flash_attention"}
+    assert not h100_guard.quarantined_ops()
+    assert [s.out for s in ss] == _one_engine(model, params, prompts)
+
+
+@pytest.mark.parametrize("suite", ["serving_scaled", "serving_chaos"])
+def test_serving_cluster_suites_on_the_card(dev, suite):
+    from repro_torch.bench import runner
+    from repro_torch.core import registry
+
+    runner.load_suites()
+    recs = registry.get(f"{suite}[cuda]").run("quick", overrides={"device": "cuda"})
+    names = [r.name for r in recs]
+    assert recs and not any("_skipped" in n for n in names)
+    assert all(np.isfinite(r.value) for r in recs)
+    if suite == "serving_chaos":  # 6 requests x 8 tokens: the guarded legs run
+        assert any(n.startswith("serving_chaos_guard_") for n in names)

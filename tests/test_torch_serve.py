@@ -470,62 +470,11 @@ def test_guarded_engine_clean_run_is_exact_with_zero_drift(gemma):
     assert t == j and 0 < t[1]["guard_checks"] < t[1]["ticks"]
 
 
-def _port_fault_replay(eng, plan):
-    """The reference's ``FaultInjector`` for kernel_drift / kernel_fault
-    faults, tick for tick, against the port's engine and guard (the port's
-    fault layer waits for the serving cluster)."""
-    active, tick, rngs = [], 0, {}
-    drift_ops, fault_ops = set(), set()
-
-    def sync():
-        nonlocal drift_ops, fault_ops
-        errs = [f for f in active if f.kind == "kernel_fault"]
-        err = RuntimeError(errs[-1].message) if errs else None
-        if err is not None and errs[-1].op is not None:
-            err.op = errs[-1].op
-        eng._inject_step_error = err
-        drifts = [f for f in active if f.kind == "kernel_drift"]
-        eng._inject_drift = ({"op": drifts[-1].op, "scale": drifts[-1].drift_scale,
-                              "rng": rngs[id(drifts[-1])]} if drifts else None)
-        now_drift = {f.op for f in drifts}
-        now_fault = {f.op for f in errs if f.op is not None}
-        for op in now_drift - drift_ops:
-            f = next(f for f in drifts if f.op == op)
-            tguard.inject_drift(op, scale=f.drift_scale, seed=(plan.seed or 0) * 7919 + f.tick)
-        for op in drift_ops - now_drift:
-            tguard.clear_drift(op)
-        for op in now_fault - fault_ops:
-            f = next(f for f in errs if f.op == op)
-            tguard.inject_fault(op, f.message)
-        for op in fault_ops - now_fault:
-            tguard.clear_fault(op)
-        drift_ops, fault_ops = now_drift, now_fault
-
-    ends = {}  # id(fault) -> first tick it is no longer active
-    while eng.has_work() or active or tick < plan.horizon:
-        due = [f for f in active if ends[id(f)] <= tick]
-        if due:
-            active = [f for f in active if ends[id(f)] > tick]
-            for f in due:
-                rngs.pop(id(f), None)
-            sync()
-        for f in plan.at(tick):
-            if f.kind == "kernel_drift":
-                rngs[id(f)] = np.random.default_rng((plan.seed or 0) * 7919 + f.tick)
-            ends[id(f)] = tick + f.duration
-            active.append(f)
-            sync()
-        eng.step()
-        tick += 1
-    active = []
-    sync()
-
-
-def _guard_plan():
-    return jserve.FaultPlan(seed=42, faults=(
-        jserve.Fault(tick=2, kind="kernel_drift", replica=0, duration=2, op="matmul",
-                     drift_scale=0.25),
-        jserve.Fault(tick=6, kind="kernel_fault", replica=0, op="flash_attention"),
+def _guard_plan(serve):
+    return serve.FaultPlan(seed=42, faults=(
+        serve.Fault(tick=2, kind="kernel_drift", replica=0, duration=2, op="matmul",
+                    drift_scale=0.25),
+        serve.Fault(tick=6, kind="kernel_fault", replica=0, op="flash_attention"),
     ))
 
 
@@ -540,10 +489,7 @@ def test_guarded_engine_detects_quarantines_heals_token_exact_as_the_reference(g
     def drive(eng, serve):
         ss = [eng.submit(p, 8) for p in prompts]
         with pytest.warns(RuntimeWarning, match="quarantined kernel op"):
-            if serve is jserve:
-                jserve.FaultInjector(_guard_plan(), eng).run()
-            else:
-                _port_fault_replay(eng, _guard_plan())
+            serve.FaultInjector(_guard_plan(serve), eng).run()
         guard = jguard if serve is jserve else tguard
         mid = (_counters(eng), eng._injected_drift_calls, sorted(guard.metrics().quarantined_ops),
                eng._degraded)
@@ -588,4 +534,8 @@ def test_serving_suite_record_names_match_reference():
     assert next(v for k, v in eqmem.items() if "paged" in k) > dense
     skipped = tregistry.get("serving[cuda]").run("quick", overrides={**over, "device": "cpu"})
     assert [(r.name, r.value) for r in skipped] == [("serving_skipped[cuda]", 5.0)]
-    assert sorted(n for n in trunner.select(["serving"])) == ["serving[cuda]", "serving[torch]"]
+    # the prefix "serving" selects the cluster suites too, as in the reference
+    want_selected = sorted(n.replace("[pallas]", "[cuda]").replace("[xla]", "[torch]")
+                           for n in jrunner.select(["serving"]))
+    assert sorted(trunner.select(["serving"])) == want_selected
+    assert {"serving[cuda]", "serving[torch]"} < set(want_selected)

@@ -55,6 +55,34 @@ Phases, in order; any failure exits non-zero before the final line:
    at the chunk the autotuner picks for the H100 (512), which must reach the
    ssm_scan kernel at that chunk and agree with the chunk-256 forward; the
    plain forward is rooflined as in phase 7;
+8b. the MoE family at olmoe-1b-7b's full width and depth (16 layers, 64
+   experts top-8, 6.9e9 fp32 params), ``attn_impl="pallas"``: ``loss_fn``,
+   ``prefill`` and 32 greedy ``decode_step``s on 4 sequences of 1000
+   tokens through build_model's entry points, each call with 16
+   flash_attention launches, against the plain ``attn_impl="blockwise"``
+   path (last logits and every shared-input decode step within 0.1 of
+   their max, the loss within 1e-3; a greedy flip is printed with its
+   margin); then ``moe_block`` against ``moe_block_dense`` on 1 x 256 bf16
+   tokens at layer 0 with ``capacity_factor`` 16 (nothing drops) within
+   ``tolerance(bfloat16, "nvidia-h100-sxm")``, with the drops at 1.25
+   printed; then phase 10's 8 requests served by a dense and a paged engine
+   and a direct ``decode_chunk``/``decode_step`` loop, token for token
+   equal: a MoE routing group is one lane of one call, and every leg cuts
+   each prompt into the same 128-token chunks (the paged leg's 128-token
+   prefix is one chunk); tokens/s, TTFT, per-token p50/p99 and peak memory
+   per engine, and the assignments each engine drops, counted in an
+   untimed rerun of its requests (as are the drops of one 4 x 1000
+   prefill), which must repeat its tokens;
+8c. the VLM family at internvl2-76b's full width with ``n_layers`` cut from
+   80 to 4 (the whole model's 282 GB of fp32 params do not fit one card):
+   a seeded bf16 frontend of (2, 256, 8192) patch embeddings before 256
+   text tokens, ``loss_fn``, ``prefill`` (4 flash launches each) and 8
+   greedy decode steps against the plain path, held as in 8b;
+8d. the encoder-decoder family at whisper-base, whole: seeded bf16 frames
+   (4, 1500, 512) and 32-token prompts, ``loss_fn`` and ``prefill`` with 18
+   flash launches each (6 non-causal encoder layers over 1500 frames, 6
+   causal decoder self attentions, 6 cross attentions of Sq 32 over Skv
+   1500), 16 greedy ``decode_step``s, held as in 8b;
 9. the numerics guard (``kernels/guard.py``) at gemma-2b's full width and
    depth: the 4 x 1000 prefill with ``attn_impl="pallas"`` under
    ``kernel_policy(guard="shadow")`` at the H100's tolerances, every flash
@@ -185,7 +213,14 @@ SSM_FP16_RTOL = 2e-3
 # measured in the run.
 MATMUL_F32_ROW_RTOL = {"bfloat16": 1e-5, "float16": 1e-5, "float8_e4m3fn": 5e-4}
 MATMUL_SHAPES = ((2048, 2048, 2048), (4096, 4096, 4096), (300, 200, 100))
-FLASH_MODEL_SHAPES = {"gemma-2b": (8, 1, 256), "zamba2-7b": (32, 32, 112)}  # H, Hkv, hd
+# each LM's causal prefill in the model layout, as its phase hands it to flash:
+# B, S, H, Hkv, hd (internvl2-76b's S is its 256 frontend rows and 256 of text)
+FLASH_MODEL_SHAPES = {"gemma-2b": (4, 1000, 8, 1, 256), "zamba2-7b": (4, 1000, 32, 32, 112),
+                      "olmoe-1b-7b": (4, 1000, 16, 16, 128),
+                      "internvl2-76b": (2, 512, 64, 8, 128)}
+# the flash row's keys of its other shapes, beside gemma-2b's
+FLASH_SHAPE_SUFFIXES = ("_hd112", "_hd512", "_olmoe", "_internvl2", "_whisper_enc",
+                        "_whisper_cross")
 MEMBW_SHAPE = (65536, 512)  # 128 MiB of fp32: the probes' largest footprint
 # phase 4c: the paper's other suites, the kernels each registered variant must
 # launch (exactly these; the [torch] variants and the rest launch none)
@@ -209,6 +244,10 @@ SERVE_PROMPT_LENS, SERVE_PREFIX, SERVE_MAX_LEN, SERVE_PAGE = (200, 1000), 128, 1
 # phase 11: the serving cluster at full width
 CLUSTER_REPLICAS, CLUSTER_FAIL_AFTER = 2, 4  # replicas; ticks before leg 3 fails replica 1
 CARD_HW = "nvidia-h100-sxm"
+# phases 8b-8d: the MoE, VLM and encoder-decoder families
+MOE_DENSE_TOKENS = 256  # moe_block against moe_block_dense, 1 x 256 tokens at layer 0
+VLM_LAYERS, VLM_BATCH, VLM_TEXT, VLM_STEPS = 4, 2, 256, 8  # internvl2-76b cut from 80 layers
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_STEPS = 4, 1500, 32, 16
 LAUNCH_ARGV = ["--arch", "gemma-2b", "--requests", "8", "--prompt-len", "64", "--max-new", "16",
                "--slots", "4", "--max-len", "256", "--prefill-chunk", "64", "--replicas", "2",
                "--health", "--chaos", "--chaos-seed", "7", "--page-size", "16",
@@ -604,17 +643,17 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple:
     return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
 
 
-def flash_model_case(torch, dev, gen, heads, kv_heads, hd) -> tuple:
-    """One bf16 causal case in the model layout at the LMs' batch and prompt,
-    q (B, S, heads, hd) and k/v (B, S, kv_heads, hd): the operands, their
-    head-expanded (BH, S, hd) copies that the plain version takes, the
-    kernel's output in that layout, and the plain version's fp32 output."""
+def flash_model_case(torch, dev, gen, heads, kv_heads, hd, b=LM_BATCH, s=LM_PROMPT) -> tuple:
+    """One bf16 causal case in the model layout, by default at the LMs'
+    batch and prompt, q (b, s, heads, hd) and k/v (b, s, kv_heads, hd): the
+    operands, their head-expanded (BH, S, hd) copies that the plain version
+    takes, the kernel's output in that layout, and the plain version's fp32
+    output."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_model
 
-    s = LM_PROMPT
-    q = torch.randn((LM_BATCH, s, heads, hd), generator=gen, device=dev).bfloat16()
-    k, v = (torch.randn((LM_BATCH, s, kv_heads, hd), generator=gen, device=dev).bfloat16()
+    q = torch.randn((b, s, heads, hd), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, kv_heads, hd), generator=gen, device=dev).bfloat16()
             for _ in range(2))
     flat = [t.repeat_interleave(heads // t.shape[2], 2).permute(0, 2, 1, 3)
             .reshape(-1, s, hd).contiguous() for t in (q, k, v)]
@@ -636,11 +675,15 @@ def flash_agreement(name, got, want32, tol) -> dict:
 
 
 def flash_checks(torch, dev, gen) -> dict:
-    """flash_attention at the LMs' shapes, bf16, causal, S 1000, in the model
-    layout the LMs hand it: gemma-2b's q (4, 1000, 8, 256) over one KV head
-    (native GQA), and zamba2-7b's q (4, 1000, 32, 112) at its native head
-    width; each against its plain version and timed beside it and SDPA.
-    Also the head-flattened entry point: bf16 at gemma's prompt of 2048
+    """flash_attention at the LMs' shapes (FLASH_MODEL_SHAPES), bf16,
+    causal, in the model layout the LMs hand it: gemma-2b's q (4, 1000, 8,
+    256) over one KV head (native GQA), zamba2-7b's q (4, 1000, 32, 112) at
+    its native head width, and the hd-128 instance at olmoe-1b-7b's q (4,
+    1000, 16, 128) and internvl2-76b's q (2, 512, 64, 128) over 8 KV heads;
+    each against its plain version and timed beside it and SDPA.
+    Whisper's non-causal shapes at hd 64: the encoder's 1500 frames and
+    the cross attention's 32 queries over them.  Also the head-flattened
+    entry point: bf16 at gemma's prompt of 2048
     (bq 128, bk 1024) and fp32 at S 256 on the FP32-pipe kernel."""
     import torch.nn.functional as F
 
@@ -659,19 +702,20 @@ def flash_checks(torch, dev, gen) -> dict:
     def model_layout(arch):
         """The kernel on (B, S, H, hd) q and (B, S, Hkv, hd) k/v; the plain
         version and SDPA get the expanded heads, made untimed."""
-        heads, kv_heads, hd = FLASH_MODEL_SHAPES[arch]
-        (q, k, v), flat, got, want32 = flash_model_case(torch, dev, gen, heads, kv_heads, hd)
+        b, s, heads, kv_heads, hd = FLASH_MODEL_SHAPES[arch]
+        (q, k, v), flat, got, want32 = flash_model_case(torch, dev, gen, heads, kv_heads, hd,
+                                                        b, s)
         errs = flash_agreement(f"flash_attention bf16 at {arch}'s q {tuple(q.shape)} "
                                f"k/v {tuple(k.shape)}", got, want32, 2e-2)
         del got, want32
-        s = LM_PROMPT
-        q4, k4, v4 = (t.view(LM_BATCH, heads, s, hd) for t in flat)  # SDPA's (B, H, S, hd)
-        flops = 2 * LM_BATCH * heads * s * s * hd  # causal: half of the two full products
+        q4, k4, v4 = (t.view(b, heads, s, hd) for t in flat)  # SDPA's (B, H, S, hd)
+        flops = 2 * b * heads * s * s * hd  # causal: half of the two full products
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # KV heads read once
         bound_ms, bound_by = bound(flops, nbytes, BF16_FLOPS)
         ms = time_ms(torch, lambda: flash_attention_model(q, k, v, causal=True), 20)
         return {
-            **errs, "ms": ms, "tflops": flops / ms * 1e-9,
+            **errs, "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 causal",
+            "ms": ms, "tflops": flops / ms * 1e-9,
             "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(*flat, causal=True), 5),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=True), 20),
@@ -704,6 +748,41 @@ def flash_checks(torch, dev, gen) -> dict:
                     q4, k4, v4, is_causal=True), 5),
                 "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by}
 
+    def whisper(sq):
+        """whisper-base's non-causal shapes at hd 64 over 8 heads: q (4, sq,
+        8, 64) against k/v (4, 1500, 8, 64), the encoder's self attention
+        (sq 1500) or the decoder's cross attention (sq 32, under one 128-row
+        q tile); 1500 is not a multiple of the 128-key tile.  Against the
+        plain version, timed beside it and SDPA."""
+        b, h, hd = WHISPER_BATCH, 8, 64
+        skv = WHISPER_FRAMES
+        q = torch.randn((b, sq, h, hd), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((b, skv, h, hd), generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        qf, kf, vf = (t.permute(0, 2, 1, 3).reshape(-1, t.shape[1], hd).contiguous()
+                      for t in (q, k, v))
+        got = flash_attention_model(q, k, v, causal=False).permute(0, 2, 1, 3).reshape(-1, sq, hd)
+        want32 = ref.flash_attention_ref(qf.float(), kf.float(), vf.float(), causal=False)
+        errs = flash_agreement(f"flash_attention bf16 non-causal q {tuple(q.shape)} "
+                               f"k/v {tuple(k.shape)}", got, want32, 2e-2)
+        del got, want32
+        q4, k4, v4 = (t.view(b, h, -1, hd) for t in (qf, kf, vf))
+        flops = 4 * b * h * sq * skv * hd  # non-causal: the two full products
+        bound_ms, bound_by = bound(flops, 2 * (2 * q.numel() + k.numel() + v.numel()), BF16_FLOPS)
+        return {**errs, "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 non-causal",
+                "ms": time_ms(torch, lambda: flash_attention_model(q, k, v, causal=False), 20),
+                "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(qf, kf, vf,
+                                                                           causal=False), 5),
+                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4), 20),
+                "bound_ms": bound_ms, "bound_by": bound_by, "tflops": flops / 1e9}
+
+    enc = whisper(WHISPER_FRAMES)
+    print(f"check flash_attention at whisper-base's encoder: {enc}", flush=True)
+    cross = whisper(WHISPER_PROMPT)
+    print(f"check flash_attention at whisper-base's cross attention: {cross}", flush=True)
+    for r in (enc, cross):
+        r["tflops"] /= r["ms"]
     hd512 = wide()
     print(f"check flash_attention past hd 256: {hd512}", flush=True)
     flat32 = check_flat(torch.float32, 256, 128, 256, 1e-4)
@@ -712,22 +791,32 @@ def flash_checks(torch, dev, gen) -> dict:
           flush=True)
     hd112 = model_layout("zamba2-7b")
     print(f"check flash_attention at zamba2-7b's q (4, 1000, 32, 112) bf16: {hd112}", flush=True)
+    olmoe = model_layout("olmoe-1b-7b")
+    print(f"check flash_attention at olmoe-1b-7b's q (4, 1000, 16, 128) bf16: {olmoe}", flush=True)
+    internvl2 = model_layout("internvl2-76b")
+    print(f"check flash_attention at internvl2-76b's q (2, 512, 64, 128) over 8 KV heads bf16: "
+          f"{internvl2}", flush=True)
     row = {
         "shape": "q (4, 1000, 8, 256) bf16 causal, k/v (4, 1000, 1, 256): model layout, "
                  "native GQA",
         "tolerance": "bf16 rtol 2e-2, atol 2e-2 and each row's ||err|| / ||want|| within 1e-2 "
-                     "of the fp32 plain output, at S 1000 (hd 256 over one KV head, hd 112) and "
-                     "2048, and at hd 512 (S 2048, the wide kernel); fp32 1e-4 (rows 1e-4) at "
-                     "S 256",
+                     "of the fp32 plain output, at S 1000 (hd 256 over one KV head, hd 112, hd "
+                     "128), at S 512 (hd 128, 64 heads over 8) and 2048, at hd 512 (S 2048, "
+                     "the wide kernel) and non-causal at hd 64 (Sq 1500 and 32 over 1500 "
+                     "keys); fp32 1e-4 (rows 1e-4) at S 256",
         "max_abs_err_bf16_s2048": flat2k["max_abs_err"],
         "row_rel_err_bf16_s2048": flat2k["row_rel_err"],
         "max_abs_err_fp32_s256": flat32["max_abs_err"],
         **model_layout("gemma-2b"),
         **{f"{k}_hd112": v for k, v in hd112.items()},
         **{f"{k}_hd512": v for k, v in hd512.items()},
+        **{f"{k}_olmoe": v for k, v in olmoe.items()},
+        **{f"{k}_internvl2": v for k, v in internvl2.items()},
+        **{f"{k}_whisper_enc": v for k, v in enc.items()},
+        **{f"{k}_whisper_cross": v for k, v in cross.items()},
     }
     print(f"check flash_attention at gemma-2b's q (4, 1000, 8, 256) bf16: "
-          f"{ {k: v for k, v in row.items() if not k.endswith(('_hd112', '_hd512'))} }",
+          f"{ {k: v for k, v in row.items() if not k.endswith(FLASH_SHAPE_SUFFIXES)} }",
           flush=True)
     return row
 
@@ -1508,6 +1597,351 @@ def zamba_path(torch, dev) -> dict:
     return total
 
 
+# phases 8b-8d: the MoE, VLM and encoder-decoder families
+
+
+def counted(torch, fn) -> tuple:
+    """``fn()`` with the launch counts zeroed before and read after, timed
+    on the host clock between two synchronizes: (result, seconds, counts)."""
+    from repro_torch.kernels import _util
+
+    torch.cuda.synchronize()
+    _util.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _util.launch_counts()
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def greedy(torch, model, params, cache, tok, start, steps, dev) -> tuple:
+    """``steps`` greedy ``decode_step``s from ``tok`` at position ``start``:
+    the tokens (B, steps) and each step's logits (steps, B, V) in fp32."""
+    toks, rows = [], []
+    for i in range(steps):
+        pos = torch.full((tok.shape[0],), start + i, dtype=torch.int32, device=dev)
+        logits, cache = model.decode_step(params, cache, tok, pos)
+        tok = logits.argmax(-1)
+        toks.append(tok)
+        rows.append(logits.float())
+    return torch.stack(toks, 1), torch.stack(rows)
+
+
+def greedy_flips(torch, got, want, got_rows, want_rows) -> tuple:
+    """The kernel path's greedy decode against the plain path's: (flips,
+    rel), where ``flips`` lists, per lane whose stream leaves the plain
+    one, the first step that differs, both tokens, the plain path's top-2
+    logit margin there and the two paths' largest logit distance at that
+    step (a flip needs the margin within twice the distance: a near-tie);
+    ``rel`` is the largest max |got - want| / max |want| of a logits row
+    over every step whose inputs the two paths share (each lane up to and
+    including its first flip)."""
+    flips, rel = [], 0.0
+    for lane in range(want.shape[0]):
+        diff = (got[lane] != want[lane]).nonzero()
+        last = int(diff[0]) if len(diff) else want.shape[1] - 1
+        for j in range(last + 1):
+            rel = max(rel, rel_max(got_rows[j, lane], want_rows[j, lane]))
+        if len(diff):
+            top = torch.topk(want_rows[last, lane], 2).values
+            flips.append({"lane": lane, "step": last, "want": int(want[lane, last]),
+                          "got": int(got[lane, last]), "margin": float(top[0] - top[1]),
+                          "distance": float((got_rows[last, lane]
+                                             - want_rows[last, lane]).abs().max())})
+    return flips, rel
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Count, on the device, the real tokens' assignments every ``moe_block``
+    call drops past its capacity (``mlp.moe_drop_count``, each lane of a call
+    one routing group); yields a dict whose ``"drops"`` is the running total
+    (a tensor).  It adds a router pass to every call, so it wraps untimed
+    runs only.  A prefill chunk's pad entries (positions the step itself
+    treats as padding: past the lane cache, or past the block table's
+    pages) route too, after a lane's real tokens: the two chunk steps are
+    wrapped to hand their real-token mask, read from their named arguments
+    ``cache``, ``positions`` and ``block_table``, to the count.  A decode
+    step routes each lane as a group of one token, which never drops."""
+    import inspect
+
+    from repro_torch.models import mlp, transformer
+
+    block, seen, mask = mlp.moe_block, {"drops": 0}, {"real": None}
+    steps = {name: getattr(transformer, name)
+             for name in ("lm_decode_chunk", "lm_decode_chunk_paged")}
+
+    def spy(params, x, cfg):
+        seen["drops"] = seen["drops"] + mlp.moe_drop_count(params, x, cfg, mask["real"])
+        return block(params, x, cfg)
+
+    def masked(step):
+        sig = inspect.signature(step)
+
+        def run(*args, **kwargs):
+            a = sig.bind(*args, **kwargs).arguments
+            # the dense cache (L, B, Smax, K, hd); the page pool (L, N, page, K, hd)
+            limit = a["cache"]["k"].shape[2]
+            if "block_table" in a:
+                limit *= a["block_table"].shape[1]
+            mask["real"] = a["positions"] < limit
+            try:
+                return step(*args, **kwargs)
+            finally:
+                mask["real"] = None
+        return run
+
+    mlp.moe_block = spy
+    for name, step in steps.items():
+        setattr(transformer, name, masked(step))
+    try:
+        yield seen
+    finally:
+        mlp.moe_block = block
+        for name, step in steps.items():
+            setattr(transformer, name, step)
+
+
+def lm_against_plain(torch, name, model, plain_model, params, batch, steps, want_flash, dev):
+    """``loss_fn``, ``prefill`` and ``steps`` greedy decode steps through
+    ``model`` (the flash kernel) and ``plain_model`` (blockwise): each call's
+    flash launches must be ``want_flash``; the outputs are finite, of the
+    expected shapes, and agree with the plain path (last logits within 0.1 of
+    their max, the loss within LOSS_RTOL, and every decode step's logits
+    whose inputs the two paths share within 0.1 too: a greedy token that
+    flips is a bf16 near-tie, printed with its margin, and the step's logits
+    are held to that same limit).  ``batch`` holds tokens, targets and any
+    frontend; the prefill gets all but the targets."""
+    prompt = {k: v for k, v in batch.items() if k != "targets"}
+    start = batch["tokens"].shape[1] + (
+        batch["frontend"].shape[1] if model.cfg.family == "vlm" else 0)
+    runs = {}
+    for path, m in (("kernel", model), ("plain", plain_model)):
+        loss, loss_s, loss_counts = counted(torch, lambda: float(m.loss_fn(params, batch)))
+        (last, cache), prefill_s, prefill_counts = counted(
+            torch, lambda: m.prefill(params, prompt, start + steps))
+        # both paths decode from the same token, the sequence's next one
+        (toks, rows), decode_s, _ = counted(torch, lambda: greedy(
+            torch, m, params, cache, batch["targets"][:, -1], start, steps, dev))
+        vocab = m.cfg.vocab_size  # the pad columns hold -1e30 in both paths
+        runs[path] = {"loss": loss, "last": last[:, :vocab].float(), "tokens": toks,
+                      "rows": rows[..., :vocab],
+                      "loss_s": loss_s, "prefill_s": prefill_s, "decode_s": decode_s,
+                      "counts": {"loss_fn": loss_counts, "prefill": prefill_counts}}
+        del cache
+    run, plain = runs["kernel"], runs["plain"]
+    want = {"flash_attention": want_flash}
+    if run["counts"] != {"loss_fn": want, "prefill": want} or any(plain["counts"].values()):
+        raise AssertionError(f"{name}: launches {run['counts']} (plain {plain['counts']}), "
+                             f"expected flash_attention {want_flash} per call")
+    b = batch["tokens"].shape[0]
+    if run["last"].shape != (b, model.cfg.vocab_size) or run["tokens"].shape != (b, steps):
+        raise AssertionError(f"{name}: shapes {tuple(run['last'].shape)}, "
+                             f"{tuple(run['tokens'].shape)}")
+    if not (torch.isfinite(run["last"]).all() and torch.isfinite(run["rows"]).all()
+            and math.isfinite(run["loss"])):
+        raise AssertionError(f"{name}: non-finite outputs")
+    flips, decode_rel = greedy_flips(torch, run["tokens"], plain["tokens"], run["rows"],
+                                     plain["rows"])
+    res = {
+        "loss": run["loss"], "plain_loss": plain["loss"],
+        "loss_vs_plain": abs(run["loss"] - plain["loss"]) / abs(plain["loss"]),
+        "rel_err_last_logits": rel_max(run["last"], plain["last"]),
+        "rel_err_decode_logits": decode_rel,
+        "greedy_equal_share": float((run["tokens"] == plain["tokens"]).float().mean()),
+        "prefill_argmax_equal_share": float((run["last"].argmax(-1) == plain["last"].argmax(-1))
+                                            .float().mean()),
+        "flips": flips, **{f"{k}_s": run[f"{k}_s"] for k in ("loss", "prefill", "decode")},
+        **{f"plain_{k}_s": plain[f"{k}_s"] for k in ("loss", "prefill", "decode")},
+        "prefill_tok_s": b * start / run["prefill_s"], "decode_tok_s": b * steps / run["decode_s"],
+        "launches": run["counts"],
+    }
+    print(f"{name}: " + json.dumps(res), flush=True)
+    if max(res["rel_err_last_logits"], decode_rel) > 0.1 or res["loss_vs_plain"] > LOSS_RTOL:
+        raise AssertionError(f"{name}: differs from the plain path: {res}")
+    total = {}
+    for c in run["counts"].values():
+        add_counts(total, c)
+    return total
+
+
+def moe_path(torch, dev) -> dict:
+    """Phase 8b: olmoe-1b-7b at full width and depth (see the module
+    docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.timing import percentile
+    from repro_torch.kernels import guard
+    from repro_torch.models import build_model, mlp
+    from repro_torch.models.common import count_params, tree_map
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    phase_start = time.perf_counter()
+    cfg = get_config("olmoe-1b-7b").replace(attn_impl="pallas")
+    model = build_model(cfg, device=dev)
+    plain_model = build_model(cfg.replace(attn_impl="blockwise"), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    print(f"moe: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_experts} "
+          f"experts top-{cfg.experts_per_token}, {count_params(params)} params "
+          f"({params['embed'].dtype}), init {time.perf_counter() - t0:.1f} s", flush=True)
+    seq = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1), generator=gen, device=dev)
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    with torch.inference_mode():
+        model.prefill(params, {"tokens": seq[:1, :64]})  # warm-up: cuBLAS, kernel attributes
+        counts = lm_against_plain(torch, "moe", model, plain_model, params, batch, LM_STEPS,
+                                  cfg.n_layers, dev)
+        with moe_drops() as prefill_drops:  # untimed: the prefill once more, counted
+            model.prefill(params, {"tokens": batch["tokens"]})
+
+        # the capacity dispatch against every token through every expert
+        lp = tree_map(lambda a: a[0], params["layers"]["moe"])
+        x = torch.randn((1, MOE_DENSE_TOKENS, cfg.d_model), generator=gen, device=dev).bfloat16()
+        ample = cfg.replace(capacity_factor=16.0)
+        (y, aux), dispatch_s, _ = counted(torch, lambda: mlp.moe_block(lp, x, ample))
+        (yd, auxd), dense_s, _ = counted(torch, lambda: mlp.moe_block_dense(lp, x, ample))
+        tol = guard.tolerance(torch.bfloat16, CARD_HW)
+        r = guard.compare(y, yd, tol, op="moe_block", backend="torch")
+        dispatch = {"tokens": MOE_DENSE_TOKENS, "ok": r.ok, "max_ulp": r.max_ulp,
+                    "max_abs": r.max_abs, "aux": float(aux), "aux_dense": float(auxd),
+                    "drops_at_16": int(mlp.moe_drop_count(lp, x, ample)),
+                    "drops_at_1.25": int(mlp.moe_drop_count(lp, x, cfg)),
+                    "dispatch_s": dispatch_s, "dense_s": dense_s}
+        print("moe: moe_block against moe_block_dense, bf16, capacity_factor 16: "
+              + json.dumps(dispatch), flush=True)
+        if not r.ok or dispatch["drops_at_16"] or abs(dispatch["aux"] - dispatch["aux_dense"]) > (
+                1e-5 * abs(dispatch["aux_dense"])):
+            raise AssertionError(f"moe: the dispatch disagrees with the dense oracle: {dispatch}")
+
+        # serving: a routing group is one lane of one call, so the engines and
+        # the direct loop must prefill each prompt in the same SERVE_CHUNK chunks
+        if SERVE_PREFIX % SERVE_CHUNK:
+            raise AssertionError("moe: the paged leg's prefix does not end on a chunk boundary")
+        prompts, prefix = serve_prompts(cfg)
+        base = dict(n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK,
+                    guard="off")
+        results = {}
+        for name, extra in (("dense", {}), ("paged", {"page_size": SERVE_PAGE})):
+            eng = ServeEngine(model, params, EngineConfig(**base, **extra))
+            if name == "paged":
+                eng.register_prefix(prefix)
+            eng.submit(prompts[0][:SERVE_PREFIX + 8], 4)  # warm-up: first calls of both steps
+            eng.run()
+            eng.reset_metrics()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sessions = [eng.submit(p, SERVE_NEW) for p in prompts]
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            m, sm = eng.metrics, eng.summary()
+            results[name] = {
+                "tokens": [x.out for x in sessions],
+                "finished": [x.finish_reason for x in sessions], "wall_s": wall,
+                "throughput_tok_s": sm["throughput_tok_s"], "ttft_ms_p50": sm["ttft_ms_p50"],
+                "ttft_ms_max": max(m.ttft_s) * 1e3,
+                "tok_latency_ms_p50": sm["tok_latency_ms_p50"],
+                "tok_latency_ms_p99": percentile(m.token_latency_s, 99) * 1e3,
+                "prefix_tokens_reused": sm["prefix_tokens_reused"],
+                "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            }
+            # untimed: the same requests again with their drops counted; the
+            # streams must repeat
+            with moe_drops() as drops:
+                again = [eng.submit(p, SERVE_NEW) for p in prompts]
+                eng.run()
+            if [x.out for x in again] != results[name]["tokens"]:
+                raise AssertionError(f"moe serving {name}: the counted rerun's tokens differ")
+            results[name]["assignments_dropped"] = int(drops["drops"])
+            print(f"moe serving {name} (smoke reading, {SERVE_REQUESTS} requests): "
+                  + json.dumps({k: v for k, v in results[name].items() if k != "tokens"}),
+                  flush=True)
+        direct, _ = direct_tokens(torch, model, params, prompts, dev)
+    print(f"moe: assignments dropped at capacity_factor {cfg.capacity_factor} over one "
+          f"prefill of {LM_BATCH} x {LM_PROMPT}: {int(prefill_drops['drops'])}", flush=True)
+    if any(r != "max_new_tokens" for res in results.values() for r in res["finished"]):
+        raise AssertionError("moe serving: not every request finished")
+    same = {"dense_paged": results["dense"]["tokens"] == results["paged"]["tokens"],
+            "dense_direct": results["dense"]["tokens"] == direct}
+    print(f"moe serving: tokens equal {same}; the paged leg's {SERVE_PREFIX}-token prefix "
+          f"ends on a {SERVE_CHUNK}-token chunk boundary, so every leg routes the same groups",
+          flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"moe serving: token streams differ: {same}")
+    if results["paged"]["prefix_tokens_reused"] != SERVE_REQUESTS * SERVE_PREFIX:
+        raise AssertionError(f"moe serving: prefix reuse "
+                             f"{results['paged']['prefix_tokens_reused']}")
+    print(f"moe: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
+    return counts
+
+
+def vlm_path(torch, dev) -> dict:
+    """Phase 8c: internvl2-76b at full width, its depth cut (see the module
+    docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+
+    phase_start = time.perf_counter()
+    full = get_config("internvl2-76b")
+    cfg = full.replace(attn_impl="pallas", n_layers=VLM_LAYERS)
+    print(f"vlm: {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}); n_layers cut from {full.n_layers} to "
+          f"{cfg.n_layers}: {full.param_count()} params, {full.param_count() * 4 / 1e9:.0f} GB "
+          f"of fp32, do not fit one 80 GB card", flush=True)
+    model = build_model(cfg, device=dev)
+    plain_model = build_model(cfg.replace(attn_impl="blockwise"), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    print(f"vlm: {count_params(params)} params, init {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    seq = torch.randint(0, cfg.vocab_size, (VLM_BATCH, VLM_TEXT + 1), generator=gen, device=dev)
+    frontend = torch.randn((VLM_BATCH, cfg.frontend_len, cfg.d_model), generator=gen,
+                           device=dev).bfloat16()
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:], "frontend": frontend}
+    with torch.inference_mode():
+        model.prefill(params, {"tokens": seq[:1, :8], "frontend": frontend[:1]})  # warm-up
+        counts = lm_against_plain(torch, "vlm", model, plain_model, params, batch, VLM_STEPS,
+                                  cfg.n_layers, dev)
+    print(f"vlm: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
+    return counts
+
+
+def encdec_path(torch, dev) -> dict:
+    """Phase 8d: whisper-base, whole (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+
+    phase_start = time.perf_counter()
+    cfg = get_config("whisper-base").replace(attn_impl="pallas")
+    model = build_model(cfg, device=dev)
+    plain_model = build_model(cfg.replace(attn_impl="blockwise"), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    print(f"encdec: {cfg.name}, {cfg.n_enc_layers} + {cfg.n_dec_layers} layers, d_model "
+          f"{cfg.d_model}, {count_params(params)} params, frames ({WHISPER_BATCH}, "
+          f"{WHISPER_FRAMES}, {cfg.d_model}) bf16", flush=True)
+    seq = torch.randint(0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT + 1), generator=gen,
+                        device=dev)
+    frames = torch.randn((WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                         device=dev).bfloat16()
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:], "frontend": frames}
+    with torch.inference_mode():
+        model.prefill(params, {"tokens": seq[:1, :8], "frontend": frames[:1]})  # warm-up
+        counts = lm_against_plain(torch, "encdec", model, plain_model, params, batch,
+                                  WHISPER_STEPS, cfg.n_enc_layers + 2 * cfg.n_dec_layers, dev)
+    print(f"encdec: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
+    return counts
+
+
 def gemma_full(torch, dev) -> tuple:
     """gemma-2b at full width and depth with the flash kernel, its params
     made on the card from a seeded generator."""
@@ -2243,7 +2677,10 @@ def main() -> int:
     add_counts(counts, lm_path(torch, dev))
     torch.cuda.empty_cache()  # gemma's params are gone; zamba2's 27 GB come next
     add_counts(counts, zamba_path(torch, dev))
-    torch.cuda.empty_cache()  # zamba2's params are gone; gemma-2b's come back
+    for path in (moe_path, vlm_path, encdec_path):
+        torch.cuda.empty_cache()  # the last model's params are gone; the next one's come
+        add_counts(counts, path(torch, dev))
+    torch.cuda.empty_cache()  # whisper's params are gone; gemma-2b's come back
     cfg, model, params = gemma_full(torch, dev)
     add_counts(counts, guard_path(torch, dev, cfg, model, params))
     torch.cuda.reset_peak_memory_stats()
@@ -2268,7 +2705,7 @@ def main() -> int:
         entry.update({k: v for k, v in r.items()
                       if k in ("latency_bound_ms", "tflops", "row_rel_err", "sweep_256mib",
                                "transpose_ms", "ns_per_op", "ssm_routes", "ms_passes")
-                      or k.endswith(("_hd112", "_hd512", "_4096", "_chunk512", "_fp16"))})
+                      or k.endswith((*FLASH_SHAPE_SUFFIXES, "_4096", "_chunk512", "_fp16"))})
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 Port of ``repro.models.api``.  ``build_model(cfg)`` returns a
 :class:`ModelApi`, a frozen bundle of functions closed over the config.
 State (params, caches) flows through arguments and return values, never
-through the object.  The port has the dense and hybrid (zamba2) families
-so far; the others raise ``NotImplementedError`` naming the family.
+through the object.  The port has the dense, MoE, VLM, hybrid (zamba2) and
+encoder-decoder (whisper) families; the recurrent ``ssm`` family (xlstm)
+raises ``NotImplementedError`` naming the family.
 
 Two KV-cache layouts coexist behind the same façade, as in the reference:
 
@@ -16,10 +17,10 @@ Two KV-cache layouts coexist behind the same façade, as in the reference:
   take an extra ``block_table (B, T)`` mapping each lane's logical position
   ``t`` to pool page ``bt[b, t // page]``.
 
-The hybrid family keeps ``decode_chunk`` and the paged fields ``None``: its
-recurrent per-lane state cannot yet advance independently inside a shared
-batch, so the serving engine refuses it.  The reference's cache sharding
-fields wait for the port's distribution layer (ROADMAP.md).
+The hybrid and encoder-decoder families keep ``decode_chunk`` and the paged
+fields ``None``, as in the reference, so the serving engine refuses them.
+The reference's cache sharding fields wait for the port's distribution
+layer (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from . import attention as attn
-from . import mamba, transformer
+from . import encdec, mamba, transformer
 from . import mlp as mlps
 from .common import apply_rope, as_dtype, rmsnorm, token_positions
 
@@ -87,14 +88,16 @@ def _cache_dtype(cfg):
 def build_model(cfg: ModelConfig, device="cuda") -> ModelApi:
     """The model surface for ``cfg`` on ``device`` (the card unless the
     caller passes ``"cpu"``)."""
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "encdec"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (queued in ROADMAP.md); "
-            "build_model supports the dense and hybrid families"
+            "build_model supports the dense, moe, vlm, hybrid and encdec families"
         )
     device = torch.device(device)
     if cfg.family == "hybrid":  # zamba2
         return _hybrid_model(cfg, device)
+    if cfg.family == "encdec":  # whisper
+        return _encdec_model(cfg, device)
 
     def init(gen: torch.Generator):
         _check_generator(gen, device)
@@ -168,6 +171,31 @@ def _hybrid_model(cfg: ModelConfig, device: torch.device) -> ModelApi:
 
     def cache_specs(batch, max_len):
         return mamba.zamba_cache_specs(cfg, batch, max_len, _cache_dtype(cfg))
+
+    return ModelApi(cfg, device, init, loss_fn, prefill, decode_step, init_cache, cache_specs)
+
+
+def _encdec_model(cfg: ModelConfig, device: torch.device) -> ModelApi:
+    """``batch["frontend"]`` holds the frame embeddings (B, F, d)."""
+    def init(gen: torch.Generator):
+        _check_generator(gen, device)
+        return encdec.encdec_init(gen, cfg)
+
+    def loss_fn(params, batch):
+        return encdec.encdec_loss(params, batch, cfg)
+
+    def prefill(params, batch, max_len: Optional[int] = None):
+        ml = max_len if max_len is not None else batch["tokens"].shape[1]
+        return encdec.encdec_prefill(params, batch["frontend"], batch["tokens"], cfg, ml)
+
+    def decode_step(params, cache, tokens, pos):
+        return encdec.encdec_decode_step(params, cache, tokens, pos, cfg)
+
+    def init_cache(batch, max_len):
+        return encdec.encdec_init_cache(cfg, batch, max_len, _cache_dtype(cfg), device)
+
+    def cache_specs(batch, max_len):
+        return encdec.encdec_cache_specs(cfg, batch, max_len, _cache_dtype(cfg))
 
     return ModelApi(cfg, device, init, loss_fn, prefill, decode_step, init_cache, cache_specs)
 

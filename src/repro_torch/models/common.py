@@ -59,6 +59,22 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * params["scale"].float()).to(dt)
 
 
+def layernorm_init(d: int, dtype=torch.float32, *, stack: tuple = (), device=None) -> Params:
+    return {"scale": torch.ones((*stack, d), dtype=dtype, device=device),
+            "bias": torch.zeros((*stack, d), dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in fp32 (biased variance, as ``jnp.var``), cast back to
+    ``x``'s dtype."""
+    dt = x.dtype
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embedding
 # ---------------------------------------------------------------------------
@@ -86,6 +102,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (length, d_model), fp32.
+
+    The angles reach ``length`` radians, so one ulp of the angle (1.2e-4 at
+    1500) bounds how far two libraries' ``sin`` and ``cos`` of the same
+    formula may drift apart; tests compare at that scale."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=device)
+                     / max(half - 1, 1))
+    ang = pos * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,12 @@
 ``params_from_jax`` takes the reference's init pytree as numpy arrays
 (``jax.tree.map(np.asarray, params)``) and returns the port's params: the
 same nested dict, the same shapes and dtypes, as torch tensors on
-``device``.  The dense LM's (``lm_init``) are layer-stacked with a leading
-``n_layers`` axis; the hybrid's (``zamba_init``) lead with ``(n_super,
-per)`` under ``supers`` and ``(tail,)`` under ``tail``.  The tests use it to
+``device``.  The transformer LM's (``lm_init``: dense, MoE and VLM) are
+layer-stacked with a leading ``n_layers`` axis (the MoE leaves are (L, E,
+d, f)); the encoder-decoder's (``encdec_init``) lead with
+``(n_enc_layers,)`` under ``enc_layers`` and ``(n_dec_layers,)`` under
+``dec_layers``; the hybrid's (``zamba_init``) lead with ``(n_super, per)``
+under ``supers`` and ``(tail,)`` under ``tail``.  The tests use it to
 give both packages the same weights.
 """
 from __future__ import annotations
@@ -30,17 +33,22 @@ def _tensor(a, device) -> torch.Tensor:
 
 def _stacks(cfg) -> dict:
     """Each stacked subtree and the leading shape its leaves must have."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return {"layers": (cfg.n_layers,)}
+    if cfg.family == "encdec":
+        return {"enc_layers": (cfg.n_enc_layers,), "dec_layers": (cfg.n_dec_layers,)}
     n_super, per, tail = _zamba_counts(cfg)
     return {"supers": (n_super, per), **({"tail": (tail,)} if tail else {})}
 
 
 def params_from_jax(tree, cfg, device="cuda") -> dict:
-    """The reference's dense-LM or hybrid params (numpy leaves) as the port's,
-    on ``device`` (the card unless the caller passes ``"cpu"``)."""
-    if cfg.family == "dense":
+    """The reference's transformer-LM, encoder-decoder or hybrid params (numpy
+    leaves) as the port's, on ``device`` (the card unless the caller passes
+    ``"cpu"``)."""
+    if cfg.family in ("dense", "moe", "vlm"):
         want = {"embed", "layers", "final_norm"} | (set() if cfg.tie_embeddings else {"lm_head"})
+    elif cfg.family == "encdec":
+        want = {"embed", "enc_norm", "dec_norm"} | set(_stacks(cfg))
     elif cfg.family == "hybrid":
         want = {"embed", "supers", "shared_attn", "final_norm", "lm_head"} | set(_stacks(cfg))
     else:

@@ -1,7 +1,10 @@
-"""MLP variants (swiglu / geglu / gelu).
+"""MLP variants (swiglu / geglu / gelu) and the MoE block.
 
-Port of ``repro.models.mlp``'s dense half.  The MoE block (``moe_init``,
-``moe_block``, ``moe_block_dense``) is queued in ROADMAP.md and raises here.
+Port of ``repro.models.mlp``.  MoE uses the reference's sort-free scatter
+dispatch: top-k routing, position-within-expert via a one-hot cumsum,
+capacity-bounded scatter into an (E, C, d) buffer per routing group, batched
+expert matmuls, weighted gather-combine.  The reference's expert-sharding
+pins are multi-device and are left out.
 """
 from __future__ import annotations
 
@@ -44,10 +47,120 @@ def mlp(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     return h @ params["wo"].to(dt)
 
 
-def _moe_queued(*_args, **_kwargs):
-    raise NotImplementedError(
-        "the MoE block is not ported yet (queued in ROADMAP.md §1, item 5)"
-    )
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+def moe_init(gen, cfg, dtype=torch.float32, *, stack: tuple = ()) -> Params:
+    """Router and expert weights on ``gen``'s device; ``stack`` prepends a
+    leading shape."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": dense_init(gen, (*stack, d, e), fan_in=d, dtype=dtype),
+        "wi_gate": dense_init(gen, (*stack, e, d, f), fan_in=d, dtype=dtype),
+        "wi_up": dense_init(gen, (*stack, e, d, f), fan_in=d, dtype=dtype),
+        "wo": dense_init(gen, (*stack, e, f, d), fan_in=f, dtype=dtype),
+    }
 
 
-moe_init = moe_capacity = moe_block = moe_block_dense = _moe_queued
+def moe_capacity(cfg, tokens: int) -> int:
+    """Per-expert capacity over a token group."""
+    cap = int(tokens * cfg.experts_per_token * cfg.capacity_factor / cfg.n_experts)
+    return max(8, -(-cap // 8) * 8)  # round up to 8
+
+
+def moe_drop_count(params: Params, x: torch.Tensor, cfg,
+                   real: torch.Tensor | None = None) -> torch.Tensor:
+    """The assignments :func:`moe_block` drops past :func:`moe_capacity` on
+    x (B, S, d), each lane one routing group, counting only the tokens that
+    ``real`` (B, S) marks (all when None): a 0-d tensor on x's device.  A
+    lane's unmarked tokens must come after its marked ones, as a serving
+    step's pad entries do, so that they never displace one."""
+    _, _, top_e = _route(params, x, cfg.experts_per_token)
+    hits = F.one_hot(top_e, cfg.n_experts)  # (B, S, k, E)
+    if real is not None:
+        hits = hits * real[:, :, None, None]
+    return (hits.sum(dim=(1, 2)) - moe_capacity(cfg, x.shape[1])).clamp_min(0).sum()
+
+
+def _route(params: Params, x: torch.Tensor, k: int) -> tuple:
+    """(probs, top_p, top_e) over the last axis of ``x``'s router logits:
+    the logits in ``x``'s dtype, then fp32; the top ``k`` experts with the
+    lower index first among equal probabilities (``jax.lax.top_k``'s order,
+    which ``torch.topk`` does not promise), their probabilities renormalised
+    over the k."""
+    logits = (x @ params["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :k], top_e[..., :k]
+    return probs, top_p / torch.clamp_min(top_p.sum(dim=-1, keepdim=True), 1e-9), top_e
+
+
+def moe_block(params: Params, x: torch.Tensor, cfg) -> tuple:
+    """x: (B, S, d) -> (y, aux_loss).
+
+    Group-local capacity-bounded dispatch (GShard semantics): each batch row
+    is a routing group, so positions and capacity are computed per group
+    with a sequence-long cumsum over the assignments in token-major order
+    (token t's k choices, then token t+1's).  Over-capacity assignments
+    drop (capacity_factor 1.25): they land in a scratch slot at index
+    ``cap``, which is sliced off and reads 0 on the way back, and their
+    weight is not renormalised away.
+    """
+    dt = x.dtype
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+
+    probs, top_p, top_e = _route(params, x, k)  # (B, S, E), (B, S, k) x 2
+
+    # load-balancing aux loss (Switch-style), computed globally
+    me = probs.mean(dim=(0, 1))  # (E,)
+    ce = F.one_hot(top_e, e).float().sum(dim=(0, 1, 2)) / (b * s * k)
+    aux = e * torch.sum(me * ce)
+
+    cap = moe_capacity(cfg, s)
+    flat_e = top_e.reshape(b, s * k)  # (B, S*k) expert id per assignment
+    onehot = F.one_hot(flat_e, e)  # (B, S*k, E)
+    pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(-1)  # slot within (group, expert)
+    keep = pos < cap
+    dump = torch.where(keep, pos, cap)  # dropped -> scratch slot `cap`
+
+    # scatter the token per assignment into (B, E, C+1, d); only the scratch
+    # slot can take two writes, and it is sliced off
+    group = torch.arange(b, device=x.device)[:, None]
+    buf = torch.zeros((b, e, cap + 1, d), dtype=dt, device=x.device)
+    buf[group, flat_e, dump] = x.repeat_interleave(k, dim=1)
+    buf = buf[:, :, :cap]  # (B, E, C, d)
+
+    g = _act(cfg, torch.einsum("becd,edf->becf", buf, params["wi_gate"].to(dt)))
+    u = torch.einsum("becd,edf->becf", buf, params["wi_up"].to(dt))
+    out = torch.einsum("becf,efd->becd", g * u, params["wo"].to(dt))  # (B, E, C, d)
+
+    out = F.pad(out, (0, 0, 0, 1))  # the scratch slot reads 0
+    gathered = out[group, flat_e, dump].reshape(b, s, k, d)
+    w = (top_p * keep.reshape(b, s, k)).to(dt)  # (B, S, k)
+    y = torch.einsum("bskd,bsk->bsd", gathered, w)
+    return y, aux
+
+
+def moe_block_dense(params: Params, x: torch.Tensor, cfg) -> tuple:
+    """Reference MoE: every token through every expert, mask-combined.
+
+    O(T * E * d * f) compute, exact (no drops): the oracle when capacity is
+    ample.
+    """
+    dt = x.dtype
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    xf = x.reshape(-1, d)
+    probs, top_p, top_e = _route(params, xf, k)
+    comb = torch.zeros_like(probs).scatter_(1, top_e, top_p)
+
+    g = _act(cfg, torch.einsum("td,edf->tef", xf, params["wi_gate"].to(dt)))
+    u = torch.einsum("td,edf->tef", xf, params["wi_up"].to(dt))
+    o = torch.einsum("tef,efd->ted", g * u, params["wo"].to(dt))
+    y = torch.einsum("ted,te->td", o, comb.to(dt))
+
+    me = probs.mean(dim=0)
+    ce = F.one_hot(top_e.reshape(-1), e).float().sum(dim=0) / top_e.numel()
+    aux = e * torch.sum(me * ce)
+    return y.reshape(b, s, d), aux

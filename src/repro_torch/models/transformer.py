@@ -1,10 +1,10 @@
-"""Decoder-only transformer LM, dense family (gemma/qwen/minitron/yi).
+"""Decoder-only transformer LM: dense (gemma/qwen/minitron/yi), MoE
+(olmoe/dbrx) and the VLM backbone (internvl2, stub vision frontend).
 
-Port of ``repro.models.transformer``'s dense path.  Parameters are
-layer-stacked as in the reference (``params["layers"][name]`` has a leading
-``n_layers`` axis); the layers run as a Python loop over that axis.  The
-reference's sharding pins are multi-device and are left out; MoE and the
-VLM frontend are queued in ROADMAP.md.  The serving engine's steps —
+Port of ``repro.models.transformer``.  Parameters are layer-stacked as in
+the reference (``params["layers"][name]`` has a leading ``n_layers`` axis);
+the layers run as a Python loop over that axis.  The reference's sharding
+pins are multi-device and are left out.  The serving engine's steps —
 chunked decode (``lm_decode_chunk``) and its paged twins — are plain torch
 ops, as the reference's are plain jnp.
 """
@@ -34,12 +34,8 @@ from .common import (
 # init
 # ---------------------------------------------------------------------------
 def lm_init(gen: torch.Generator, cfg) -> Params:
-    """Fresh params on ``gen``'s device, layer-stacked as the reference's."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (queued in ROADMAP.md); "
-            "the port's transformer runs the dense family"
-        )
+    """Fresh params on ``gen``'s device, layer-stacked as the reference's
+    (the MoE leaves are (L, E, d, f))."""
     dtype = as_dtype(cfg.param_dtype)
     stack = (cfg.n_layers,)
     d, dev = cfg.d_model, gen.device
@@ -49,10 +45,13 @@ def lm_init(gen: torch.Generator, cfg) -> Params:
             "attn_norm": rmsnorm_init(d, dtype, stack=stack, device=dev),
             "attn": attn.attn_init(gen, cfg, dtype=dtype, stack=stack),
             "mlp_norm": rmsnorm_init(d, dtype, stack=stack, device=dev),
-            "mlp": mlps.mlp_init(gen, cfg, dtype=dtype, stack=stack),
         },
         "final_norm": rmsnorm_init(d, dtype, device=dev),
     }
+    if cfg.family == "moe":
+        p["layers"]["moe"] = mlps.moe_init(gen, cfg, dtype=dtype, stack=stack)
+    else:
+        p["layers"]["mlp"] = mlps.mlp_init(gen, cfg, dtype=dtype, stack=stack)
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, (d, cfg.padded_vocab), dtype)
     return p
@@ -67,14 +66,33 @@ def layer_params(layers: Params, i) -> Params:
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
+def _ffn(cfg, p: Params, x: torch.Tensor) -> tuple:
+    """The block's feed-forward on the residual stream x (B, S, d), after its
+    norm: (y, aux), aux None for the dense MLP."""
+    xin = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+    if cfg.family == "moe":
+        return mlps.moe_block(p["moe"], xin, cfg)
+    return mlps.mlp(p["mlp"], xin, cfg), None
+
+
+def _ffn_token(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """:func:`_ffn` for one token per lane, x (B, d): a MoE routes each lane
+    as a group of one token."""
+    if cfg.family == "moe":
+        return _ffn(cfg, p, x[:, None, :])[0][:, 0]
+    return _ffn(cfg, p, x)[0]
+
+
 def _block_apply(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
     """Pre-norm block. x: (B,S,d). Returns (x, aux)."""
     h = attn.attention_block(
         p["attn"], rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg, positions, causal=True
     )
     x = x + h
-    y = mlps.mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
-    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+    y, aux = _ffn(cfg, p, x)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def _block_prefill(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
@@ -85,8 +103,7 @@ def _block_prefill(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
     k = attn.apply_rope(k, positions, cfg.rope_theta)
     o = attn.attention_impl(cfg)(q, k, v, causal=True)
     x = x + attn.out_proj(p["attn"], o, x.dtype)
-    y = mlps.mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
-    return x + y, (k, v)
+    return x + _ffn(cfg, p, x)[0], (k, v)
 
 
 def _block_decode(cfg, p: Params, x: torch.Tensor, ck, cv, pos, plan):
@@ -95,8 +112,7 @@ def _block_decode(cfg, p: Params, x: torch.Tensor, ck, cv, pos, plan):
     xin = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     h, ck, cv = attn.decode_attention(p["attn"], xin, cfg, ck, cv, pos, write_plan=plan)
     x = x + h
-    y = mlps.mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
-    return x + y, ck, cv
+    return x + _ffn_token(cfg, p, x), ck, cv
 
 
 # ---------------------------------------------------------------------------
@@ -141,12 +157,16 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg, frontend=None):
 
 
 def lm_loss(params: Params, batch: dict, cfg) -> torch.Tensor:
-    """Mean token cross-entropy (forward only; training is a later slice)."""
+    """Mean token cross-entropy, plus the MoE aux loss averaged over the
+    layers (forward only; training is a later slice)."""
     frontend = batch.get("frontend")
-    logits, _ = lm_forward(params, batch["tokens"], cfg, frontend)
+    logits, aux = lm_forward(params, batch["tokens"], cfg, frontend)
     if frontend is not None:  # loss only over the text span
         logits = logits[:, frontend.shape[1]:]
-    return softmax_xent(logits, batch["targets"]).mean()
+    loss = softmax_xent(logits, batch["targets"]).mean()
+    if cfg.family == "moe":
+        loss = loss + cfg.moe_aux_coef * aux / cfg.n_layers
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -231,8 +251,7 @@ def _block_decode_chunk(cfg, p: Params, x: torch.Tensor, ck, cv, positions, plan
     attn.put_kv_(cv, plan, v)
     o = _chunk_attention(q, ck, cv, positions, cfg)
     x = x + attn.out_proj(p["attn"], o, x.dtype)
-    y = mlps.mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
-    return x + y, ck, cv
+    return x + _ffn(cfg, p, x)[0], ck, cv
 
 
 def lm_decode_chunk(params: Params, cache: dict, tokens: torch.Tensor,
@@ -266,8 +285,7 @@ def _block_decode_paged(cfg, p: Params, x: torch.Tensor, pk, pv, block_table, po
     h, pk, pv = attn.paged_decode_attention(p["attn"], xin, cfg, pk, pv, block_table, pos,
                                             write_plan=plan)
     x = x + h
-    y = mlps.mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
-    return x + y, pk, pv
+    return x + _ffn_token(cfg, p, x), pk, pv
 
 
 def _block_decode_chunk_paged(cfg, p: Params, x: torch.Tensor, pk, pv, block_table, positions,
@@ -289,8 +307,7 @@ def _block_decode_chunk_paged(cfg, p: Params, x: torch.Tensor, pk, pv, block_tab
     cv = attn.gather_pages(pv, block_table)
     o = _chunk_attention(q, ck, cv, positions, cfg)
     x = x + attn.out_proj(p["attn"], o, x.dtype)
-    y = mlps.mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
-    return x + y, pk, pv
+    return x + _ffn(cfg, p, x)[0], pk, pv
 
 
 def lm_decode_chunk_paged(params: Params, cache: dict, block_table: torch.Tensor,

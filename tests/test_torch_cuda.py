@@ -243,7 +243,7 @@ def test_flash_attention_kernel(dev, dtype, tol, hd, h, hkv, b, causal, sq, skv,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("hd", [64, 112, 256])
+@pytest.mark.parametrize("hd", [64, 112, 128, 256])
 def test_flash_attention_running_max_and_masked_tiles(dev, dtype, hd):
     """Scores that grow along the keys raise every row's running max on every
     key tile, so each tile rescales the accumulator (corr < 1).  Causal at S
@@ -289,6 +289,66 @@ def test_flash_attention_pads_a_head_width_off_the_tma_unit(dev, dtype, hd):
     want = tapi.flash_attention(q, k, v, causal=True, backend="torch")
     assert got.shape == want.shape == (2, 150, 4, hd) and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,sq,skv", [
+    (2, 1500, 1500),  # whisper's encoder: 1500 frames, a partial last tile of queries and keys
+    (4, 32, 1500),    # its cross attention: a decoder prompt under one 128-row q tile
+    (1, 1, 1500),
+])
+def test_flash_attention_whisper_shapes(dev, dtype, b, sq, skv):
+    """Non-causal at hd 64 over 8 heads (whisper-base), Sq != Skv: rows past
+    Sq masked at the store, keys past 1500 masked in the scores."""
+    q = _rand((b, sq, 8, 64), dev, dtype, 14)
+    k = _rand((b, skv, 8, 64), dev, dtype, 15)
+    v = _rand((b, skv, 8, 64), dev, dtype, 16)
+    before = _util.launch_counts().get("flash_attention", 0)
+    got = tapi.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert _util.launch_counts()["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(*(t.float().permute(0, 2, 1, 3).reshape(-1, t.shape[1], 64)
+                                     for t in (q, k, v)), causal=False)
+    want = want.reshape(b, 8, sq, 64).permute(0, 2, 1, 3)
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+def test_encdec_prefill_runs_the_flash_kernel(dev):
+    """whisper-base reduced at hd 64: per prefill, one launch per encoder
+    layer and two per decoder layer (self, cross), against the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("whisper-base").reduced().replace(head_dim=64, attn_impl="pallas",
+                                                       frontend_len=300)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"frontend": torch.randn((2, 300, cfg.d_model), device=dev, generator=gen),
+             "tokens": torch.randint(0, cfg.vocab_size, (2, 20), device=dev, generator=gen)}
+    _util.reset_launch_counts()
+    last, cache = model.prefill(params, batch, 24)
+    assert _util.launch_counts() == {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_dec_layers}
+    plain, _ = build_model(cfg.replace(attn_impl="blockwise"), device=dev).prefill(
+        params, batch, 24)
+    torch.testing.assert_close(last, plain, rtol=1e-4, atol=1e-4)
+
+
+def test_moe_block_on_the_card_equals_its_dense_oracle(dev):
+    """olmoe-1b-7b's widths cut to 8 experts: bf16 with ample capacity (no
+    drops), the capacity dispatch against every token through every
+    expert, within the bf16 limit of the other bf16 checks here."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mlp
+
+    cfg = get_config("olmoe-1b-7b").replace(n_experts=8, capacity_factor=16.0)
+    p = mlp.moe_init(torch.Generator(device=dev).manual_seed(0), cfg)
+    x = _rand((2, 64, cfg.d_model), dev, torch.bfloat16, 17)
+    y, aux = mlp.moe_block(p, x, cfg)
+    want, want_aux = mlp.moe_block_dense(p, x, cfg)
+    torch.testing.assert_close(y.float(), want.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(aux, want_aux, rtol=1e-5, atol=1e-6)
 
 
 def test_lm_prefill_runs_the_flash_kernel(dev):

@@ -1,11 +1,15 @@
-"""The port's dense LM against the reference on the CPU.
+"""The port's transformer LM (dense, MoE, VLM) against the reference on the CPU.
 
 The same numpy inputs, and the reference's own ``lm_init`` weights carried
 across by ``params_from_jax``, go through ``repro.models`` (JAX, the Pallas
 flash kernel in interpret mode for ``attn_impl="pallas"``, as the reference's
 tests run it) and through ``repro_torch.models`` (whose kernel wrappers take
-their plain versions on CPU tensors).  Tolerances: float32 logits and caches
-at rtol = atol = 1e-4; greedy tokens identical.
+their plain versions on CPU tensors).  The VLM gets a seeded frontend of
+patch embeddings; the MoE's aux loss is compared too.  Tolerances:
+``repro.kernels.guard.tolerance(float32)`` on the card (256 ulps) for
+logits, losses and caches; greedy tokens identical.  Both packages'
+serving engines also serve olmoe-1b-7b reduced, dense and paged, with
+capacity drops in the prefill chunks: every token stream equal.
 """
 import dataclasses
 from functools import lru_cache
@@ -33,7 +37,8 @@ from repro_torch.models.convert import params_from_jax
 # fp32 parity at the reference's own tolerance for the card (256 ulps: 3.05e-5)
 _F32_TOL = guard.tolerance(np.float32, "nvidia-h100-sxm")
 TOL = dict(rtol=_F32_TOL.rtol, atol=_F32_TOL.atol)
-ARCHS = ("gemma-2b", "qwen2.5-14b")  # MQA/geglu/tied/sqrt-d; GQA/qkv bias/swiglu/theta 1e6
+# MQA/geglu/tied/sqrt-d; GQA/qkv bias/swiglu/theta 1e6; MoE top-2 of 4; VLM frontend
+ARCHS = ("gemma-2b", "qwen2.5-14b", "olmoe-1b-7b", "internvl2-76b")
 IMPLS = ("pallas", "blockwise")
 PROMPT, NEW = 40, 8  # 40 is not a multiple of the reduced configs' attn_chunk of 32
 
@@ -65,6 +70,14 @@ def _jax_params(name):
 
 def _tokens(cfg, shape, seed):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _frontend(cfg, batch, seed):
+    """The VLM's seeded patch embeddings (B, frontend_len, d), else None."""
+    if cfg.family != "vlm":
+        return None
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(batch, cfg.frontend_len, cfg.d_model)).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -146,12 +159,19 @@ def test_lm_forward_parity(name, impl):
     jcfg, tcfg = _cfgs(name, impl)
     jp = _jax_params(name)
     toks = _tokens(jcfg, (2, PROMPT), 11)
-    want, _ = jax.jit(lambda p, t: jtr.lm_forward(p, t, jcfg))(jp, toks)
+    fe = _frontend(jcfg, 2, 14)
+    want, want_aux = jax.jit(lambda p, t, f: jtr.lm_forward(p, t, jcfg, f))(jp, toks, fe)
     tp = params_from_jax(jp, tcfg, device="cpu")
-    got, aux = ttr.lm_forward(tp, torch.from_numpy(toks), tcfg)
-    assert got.shape == (2, PROMPT, tcfg.padded_vocab) and float(aux) == 0.0
+    got, aux = ttr.lm_forward(tp, torch.from_numpy(toks), tcfg,
+                              None if fe is None else torch.from_numpy(fe))
+    s = PROMPT + (0 if fe is None else jcfg.frontend_len)
+    assert got.shape == (2, s, tcfg.padded_vocab)
+    assert (float(aux) > 0) == (tcfg.family == "moe")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
     batch = {"tokens": toks, "targets": _tokens(jcfg, (2, PROMPT), 12)}
+    if fe is not None:
+        batch["frontend"] = fe
     want_loss = jtr.lm_loss(jp, batch, jcfg)
     got_loss = build_model(tcfg, device="cpu").loss_fn(
         tp, {k: torch.from_numpy(v) for k, v in batch.items()})
@@ -166,10 +186,16 @@ def test_prefill_and_greedy_decode_parity(name, impl):
     model = build_model(tcfg, device="cpu")
     tp = params_from_jax(jp, tcfg, device="cpu")
     toks = _tokens(jcfg, (2, PROMPT), 13)
-    max_len = PROMPT + NEW
+    fe = _frontend(jcfg, 2, 15)
+    start = PROMPT + (0 if fe is None else jcfg.frontend_len)
+    max_len = start + NEW
 
-    jlast, jcache = jax.jit(lambda p, t: jtr.lm_prefill(p, t, jcfg, max_len))(jp, toks)
-    tlast, tcache = model.prefill(tp, {"tokens": torch.from_numpy(toks)}, max_len)
+    jlast, jcache = jax.jit(lambda p, t, f: jtr.lm_prefill(p, t, jcfg, max_len, frontend=f))(
+        jp, toks, fe)
+    batch = {"tokens": torch.from_numpy(toks)}
+    if fe is not None:
+        batch["frontend"] = torch.from_numpy(fe)
+    tlast, tcache = model.prefill(tp, batch, max_len)
     np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast), **TOL)
     for key in ("k", "v"):
         assert tcache[key].shape == jcache[key].shape
@@ -179,7 +205,7 @@ def test_prefill_and_greedy_decode_parity(name, impl):
     jtok, ttok = jnp.argmax(jlast, -1), tlast.argmax(-1)
     jseq, tseq = [], []
     for i in range(NEW):
-        pos = np.full((2,), PROMPT + i, np.int32)
+        pos = np.full((2,), start + i, np.int32)
         jlog, jcache = jstep(jp, jcache, jtok.astype(jnp.int32), pos)
         tlog, tcache = model.decode_step(tp, tcache, ttok, torch.from_numpy(pos))
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
@@ -232,9 +258,73 @@ def test_model_api_surface():
     assert last.shape == (2, tcfg.padded_vocab) and torch.isfinite(last).all()
     with pytest.raises(ValueError, match="generator"):
         build_model(tcfg, device="meta").init(torch.Generator())
-    for name in ("olmoe-1b-7b", "whisper-base", "internvl2-76b", "xlstm-1.3b"):
-        fam = tconfigs.get_config(name).family
-        with pytest.raises(NotImplementedError, match=fam):
-            build_model(tconfigs.get_config(name), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for name in ("olmoe-1b-7b", "whisper-base", "internvl2-76b"):  # ported: they build
+        other = build_model(tconfigs.get_config(name).reduced(), device="cpu")
+        assert other.cfg.family == tconfigs.get_config(name).family
+        assert (other.decode_chunk is None) == (other.cfg.family == "encdec")
+    fam = tconfigs.get_config("xlstm-1.3b").family
+    with pytest.raises(NotImplementedError, match=fam):
+        build_model(tconfigs.get_config("xlstm-1.3b"), device="cpu")
+    with pytest.raises((TypeError, AttributeError)):  # a real block now, not a stub
         tmlp.moe_block(None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# serving a MoE: both packages' engines, capacity drops in the prefill chunks
+# ---------------------------------------------------------------------------
+def _first_chunk_drops(monkeypatch, model, params, prompts, chunk) -> int:
+    """The real assignments the port's ``moe_block`` drops (``moe_drop_count``)
+    in each prompt's first prefill chunk: its first ``chunk`` tokens at
+    positions 0..chunk-1, one lane each, which is the first group an engine
+    prefilling in ``chunk``-token chunks routes for it (the pad entries it
+    adds after them route later in the lane and displace none)."""
+    counts = []
+    block = tmlp.moe_block
+
+    def spy(p, x, cfg):
+        counts.append(int(tmlp.moe_drop_count(p, x, cfg)))
+        return block(p, x, cfg)
+
+    toks = torch.tensor([p[:chunk] for p in prompts], dtype=torch.int32)
+    pos = torch.arange(chunk, dtype=torch.int32).expand(len(prompts), -1)
+    with monkeypatch.context() as m:
+        m.setattr(tmlp, "moe_block", spy)
+        model.decode_chunk(params, model.init_cache(len(prompts), chunk), toks, pos)
+    assert len(counts) == model.cfg.n_layers
+    return sum(counts)
+
+
+@pytest.mark.parametrize("page_size", [None, 4])
+def test_moe_engine_streams_match_reference_with_drops(page_size, monkeypatch):
+    """olmoe-1b-7b reduced with one shared direction added to every embedding
+    row, so tokens route alike and a prefill chunk of 32 overflows its
+    capacity of 24 (a decode step's group of one never does).  Prompts are
+    prefilled in the same 32-token chunks by both engines, so the same
+    assignments drop, and every stream equals the reference's."""
+    from repro import serve as jserve
+    from repro.models import build_model as jbuild
+    from repro_torch import serve as tserve
+
+    jcfg = jconfigs.get_config("olmoe-1b-7b").reduced()
+    tcfg = tconfigs.get_config("olmoe-1b-7b").reduced()
+    jp = dict(_jax_params("olmoe-1b-7b"))
+    rng = np.random.default_rng(3)
+    jp["embed"] = (jp["embed"] + 0.5 * rng.normal(size=jcfg.d_model)).astype(np.float32)
+    tp = params_from_jax(jp, tcfg, device="cpu")
+    prompts = [[int(t) for t in rng.integers(1, jcfg.vocab_size, n)] for n in (40, 70, 33, 64)]
+    config = dict(n_slots=2, max_len=96, prefill_chunk=32)
+    if page_size:
+        config.update(page_size=page_size, n_pages=2 * 96 // page_size + 4)
+
+    def drive(eng):
+        ss = [eng.submit(p, 6) for p in prompts]
+        eng.run(400)
+        return [s.out for s in ss], eng.summary()["generated_tokens"]
+
+    want = drive(jserve.ServeEngine(jbuild(jcfg), jax.tree.map(jnp.asarray, jp),
+                                    jserve.EngineConfig(**config)))
+    model = build_model(tcfg, device="cpu")
+    got = drive(tserve.ServeEngine(model, tp, tserve.EngineConfig(**config)))
+    assert got == want and got[1] == 6 * len(prompts)
+    # real tokens' assignments drop in the chunks both engines prefilled
+    assert _first_chunk_drops(monkeypatch, model, tp, prompts, config["prefill_chunk"]) > 0

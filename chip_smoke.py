@@ -38,12 +38,15 @@ Phases, in order; any failure exits non-zero before the final line:
 6. the kernel layer's bandwidth entry points ``api.stream_copy`` and
    ``api.strided_reduce`` on 8 MiB of ones (exact sums), counted the same way;
 7. the dense LM at gemma-2b's full width and depth, ``attn_impl="pallas"``,
-   through ``build_model(cfg).prefill`` / ``decode_step``: 4 prompts of 1000
-   tokens, 32 greedy steps, then one prompt of 2048; flash_attention must
-   launch once per layer per prefill; the same requests through the plain
-   ``attn_impl="blockwise"`` path are the reference; the plain prefill is
-   counted once (``perfmodel.extract_costs``) and rooflined against the
-   H100 at bf16, and the bound's share of the kernel path's prefill printed;
+   through ``build_model(cfg).loss_fn`` / ``prefill`` / ``decode_step`` on 4
+   sequences of 1000 tokens, 32 greedy steps, held against the plain
+   ``attn_impl="blockwise"`` path by the harness of phases 8b-8e (each call
+   with 18 flash_attention launches; last logits and every shared-input
+   decode step within 0.1 of their max, the loss within 1e-3; a greedy flip
+   printed with its margin); beside it one prompt of 2048 (18 launches,
+   held the same way), and the plain 4 x 1000 prefill counted once
+   (``perfmodel.extract_costs``) and rooflined against the H100 at bf16,
+   the bound's share of the kernel path's prefill printed;
 8. the Zamba2 hybrid LM at zamba2-7b's full width and depth (81 Mamba2
    layers, 14 shared-attention calls at hd 112), ``ssm_impl="pallas"`` and
    ``attn_impl="pallas"``, through ``build_model(cfg).loss_fn`` (81 ssm_scan
@@ -83,6 +86,18 @@ Phases, in order; any failure exits non-zero before the final line:
    flash launches each (6 non-causal encoder layers over 1500 frames, 6
    causal decoder self attentions, 6 cross attentions of Sq 32 over Skv
    1500), 16 greedy ``decode_step``s, held as in 8b;
+8e. the xLSTM family at xlstm-1.3b, whole (48 layers: 6 macro blocks of 7
+   mLSTM + 1 sLSTM, 2.07e9 fp32 params, bf16 compute): ``loss_fn``,
+   ``prefill`` of 4 x 1000 tokens and 16 greedy ``decode_step``s, then the
+   forward over the prompt and the tokens the steps were fed; no hand kernel
+   may launch (the family is plain torch, as the reference's is plain jnp);
+   the prefill's last logits must agree with the forward's at the same
+   position within 0.1 of their max, in bf16 and in a float32 twin; each
+   decode step's (the step recurrence against the chunkwise form) distance
+   from the forward is printed at full depth beside the model's own floor
+   (the float32 forward with its embeddings nudged by one ulp: the random
+   weights amplify a rounding at every layer), and held within 0.1 over one
+   macro block (8 layers) at full width in float32; times printed;
 9. the numerics guard (``kernels/guard.py``) at gemma-2b's full width and
    depth: the 4 x 1000 prefill with ``attn_impl="pallas"`` under
    ``kernel_policy(guard="shadow")`` at the H100's tolerances, every flash
@@ -139,7 +154,27 @@ Phases, in order; any failure exits non-zero before the final line:
    ``decode_step``-vs-``decode_chunk`` distance and the leg's float32 twin is
    identical (each flip printed); anything else fails.  Each leg prints its
    wall time, tokens/s, TTFT and per-token p50/p99;
-12. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
+12. training, with the earlier phases' params freed: (a) gemma-2b at full
+   width and depth as the reference trains it (``attn_impl="blockwise"``,
+   remat "full", bf16 compute, fp32 params and AdamW state), 4 steps of
+   ``make_train_step`` on ``SyntheticLM`` batches of 2 x 1024 (lr warmed up
+   from 0 at step 0): every parameter leaf gets a nonzero gradient on the
+   first batch, the losses and grad norms are finite, the first batch's loss
+   falls, no hand kernel launches; per-step loss, grad norm, step time and
+   tokens/s, and the peak memory printed; (b) the same step at ``reduced()``
+   float32 on the card against the CPU, 3 steps: the losses within 1e-4
+   relative, the params under the rule of ``tests/test_torch_train.py``
+   (each leaf within ``tolerance(float32, "nvidia-h100-sxm")`` but for 1 %
+   of its elements, every element within a quarter of the summed lr);
+   (c) ``examples/train_tiny_lm_torch.py`` at its defaults, with its
+   injected failure and resume, and the same run uninterrupted: the resumed
+   losses' largest difference printed and held within 0.05 (the card's
+   embedding backward adds with atomics); (d) ``python -m
+   repro_torch.launch.train --arch gemma-2b --steps 2 --batch 2 --seq 512``
+   in a subprocess, which must exit 0; (e) the flash kernel under autograd,
+   alone and in a gemma-2b reduced ``value_and_grad`` with
+   ``attn_impl="pallas"``, must raise before it launches;
+13. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Rates used for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s HBM,
@@ -162,6 +197,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BPS = 3.35e12
+# a dependent fma.f32's latency in cycles: the paper's Tab 4.1 on Turing, assumed
+# for Hopper (phase 4c's measured ns per fma checks it against the SM clock)
+FMA_CYCLES = 4
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 FP8_FLOPS = 1979e12  # fp8 and int8 (TOP/s)
@@ -248,6 +286,15 @@ CARD_HW = "nvidia-h100-sxm"
 MOE_DENSE_TOKENS = 256  # moe_block against moe_block_dense, 1 x 256 tokens at layer 0
 VLM_LAYERS, VLM_BATCH, VLM_TEXT, VLM_STEPS = 4, 2, 256, 8  # internvl2-76b cut from 80 layers
 WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_STEPS = 4, 1500, 32, 16
+XLSTM_STEPS = 16  # phase 8e: greedy decode steps after the 4 x 1000 prefill
+# phase 12: training
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 1024, 4, 1e-3  # (a): gemma-2b, whole
+TRAIN_CPU_STEPS = 3  # (b): reduced float32, the card against the CPU
+# (c): the example's resumed losses against its uninterrupted run; the card's
+# embedding backward adds with atomics, so the two runs part by rounding only:
+# 0.05 (1 % of the loss) catches a resume from the wrong step or a lost state
+EXAMPLE_RESUME_ATOL = 0.05
+TRAIN_LAUNCH_ARGV = ["--arch", "gemma-2b", "--steps", "2", "--batch", "2", "--seq", "512"]
 LAUNCH_ARGV = ["--arch", "gemma-2b", "--requests", "8", "--prompt-len", "64", "--max-new", "16",
                "--slots", "4", "--max-len", "256", "--prefill-chunk", "64", "--replicas", "2",
                "--health", "--chaos", "--chaos-seed", "7", "--page-size", "16",
@@ -1008,6 +1055,26 @@ def ssm_checks(torch, dev, gen) -> dict:
     }
 
 
+def sm_clock_under(torch, fn, seconds: float = 0.5) -> float:
+    """The highest SM clock (Hz) ``nvidia-smi`` reads every 50 ms while
+    ``fn`` runs back to back for about ``seconds``."""
+    mon = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                            "-lms", "50"], stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        mon.terminate()
+        out, _ = mon.communicate(timeout=10)
+    readings = [float(x) for x in out.split() if x.strip().replace(".", "", 1).isdigit()]
+    if not readings:
+        raise AssertionError(f"nvidia-smi read no SM clock: {out!r}")
+    return max(readings) * 1e6
+
+
 def op_latency_checks(torch, dev) -> dict:
     """op_latency: each op's chain of 8192 steps on 128 lanes against the same
     chain as PyTorch ops on the card (equal for the arithmetic ops, fma as one
@@ -1027,8 +1094,12 @@ def op_latency_checks(torch, dev) -> dict:
         else:
             errs[name] = 0.0
     x0 = ops.chain_input("f32", width, dev)
+    clock_hz = sm_clock_under(torch, lambda: ops.op_chain("fma.f32", x0, chain))
     return {
         "shape": f"fma.f32 chain of {chain} on {width} lanes", "max_abs_err": max(errs.values()),
+        # the chain's own floor: each of its dependent FMAs waits out the FMA
+        # latency (FMA_CYCLES) at the SM clock read while the chain ran
+        "latency_bound_ms": chain * FMA_CYCLES / clock_hz * 1e3, "sm_clock_mhz": clock_hz / 1e6,
         "tolerance": "equal for move/add/mul/fma/max and the s32 ops; rsqrt, exp, tanh, log "
                      "rtol = atol = 1e-6",
         "ms": time_ms(torch, lambda: ops.op_chain("fma.f32", x0, chain), 20),
@@ -1324,14 +1395,16 @@ def entry_point_path(torch, dev) -> dict:
 
 def lm_path(torch, dev) -> dict:
     """Phase 7: gemma-2b, full width and depth, through build_model's entry
-    points with the flash kernel; the plain blockwise path is the reference."""
+    points with the flash kernel, held against the plain blockwise path by
+    ``lm_against_plain`` (the harness of phases 8b-8e); beside it the long
+    2048-token prefill, and the roofline of the 4 x 1000 prefill."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _util
     from repro_torch.models import build_model
     from repro_torch.models.common import count_params
 
     cfg = get_config("gemma-2b").replace(attn_impl="pallas")
     model = build_model(cfg, device=dev)
+    plain_model = build_model(cfg.replace(attn_impl="blockwise"), device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     params = model.init(gen)
@@ -1339,74 +1412,36 @@ def lm_path(torch, dev) -> dict:
     n_params = count_params(params)
     print(f"lm: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} params "
           f"({params['embed'].dtype}), init {time.perf_counter() - t0:.1f} s", flush=True)
-    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    seq = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1), generator=gen, device=dev)
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
     long_prompt = torch.randint(0, cfg.vocab_size, (1, LM_LONG), generator=gen, device=dev)
-
-    def serve(m):
-        """prefill, greedy decode, long prefill; wall times after a synchronize."""
-        out = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        last, cache = m.prefill(params, {"tokens": prompts}, LM_PROMPT + LM_STEPS)
-        torch.cuda.synchronize()
-        out["prefill_s"] = time.perf_counter() - t0
-        out["last"] = last.float()
-        tok, toks = last.argmax(-1), []
-        t0 = time.perf_counter()
-        for i in range(LM_STEPS):
-            pos = torch.full((LM_BATCH,), LM_PROMPT + i, dtype=torch.int32, device=dev)
-            logits, cache = m.decode_step(params, cache, tok, pos)
-            tok = logits.argmax(-1)
-            toks.append(tok)
-        torch.cuda.synchronize()
-        out["decode_s"] = time.perf_counter() - t0
-        out["tokens"] = torch.stack(toks, 1)
-        out["decode_logits"] = logits.float()
-        t0 = time.perf_counter()
-        out["long_last"] = m.prefill(params, {"tokens": long_prompt})[0].float()
-        torch.cuda.synchronize()
-        out["long_prefill_s"] = time.perf_counter() - t0
-        return out
-
-    plain_model = build_model(cfg.replace(attn_impl="blockwise"), device=dev)
     with torch.inference_mode():
-        model.prefill(params, {"tokens": prompts[:1, :64]})  # warm-up: cuBLAS, kernel attributes
-        _util.reset_launch_counts()
-        run = serve(model)
-        counts = _util.launch_counts()
-        plain = serve(plain_model)
+        model.prefill(params, {"tokens": seq[:1, :64]})  # warm-up: cuBLAS, kernel attributes
+        counts, res = lm_against_plain(torch, "lm", model, plain_model, params, batch, LM_STEPS,
+                                       cfg.n_layers, dev)
+        (long_last, _), long_s, long_counts = counted(
+            torch, lambda: model.prefill(params, {"tokens": long_prompt}))
+        (plain_long, _), plain_long_s, _ = counted(
+            torch, lambda: plain_model.prefill(params, {"tokens": long_prompt}))
         roof = roofline_share(f"{cfg.name} prefill {LM_BATCH} x {LM_PROMPT} (plain path counted)",
                               plain_model.prefill,
-                              (params, {"tokens": prompts}, LM_PROMPT + LM_STEPS), n_params,
-                              LM_BATCH * LM_PROMPT, run["prefill_s"])
-    if counts != {"flash_attention": 2 * cfg.n_layers}:
-        raise AssertionError(f"lm: launches {counts}, expected flash_attention "
-                             f"{cfg.n_layers} per prefill, 2 prefills")
-    for key, shape in (("last", (LM_BATCH, cfg.padded_vocab)), ("long_last", (1, cfg.padded_vocab)),
-                       ("tokens", (LM_BATCH, LM_STEPS))):
-        if run[key].shape != shape:
-            raise AssertionError(f"lm: {key} has shape {tuple(run[key].shape)}, expected {shape}")
-    for key in ("last", "long_last", "decode_logits"):
-        if not torch.isfinite(run[key]).all():
-            raise AssertionError(f"lm: {key} is not finite")
-    rel = {k: float((run[k] - plain[k]).abs().max() / plain[k].abs().max())
-           for k in ("last", "long_last")}
-    same = float((run["tokens"] == plain["tokens"]).float().mean())
-    first_same = float((run["tokens"][:, 0] == plain["tokens"][:, 0]).float().mean())
-    res = {
-        "prefill_s": run["prefill_s"], "plain_prefill_s": plain["prefill_s"],
-        "prefill_tok_s": LM_BATCH * LM_PROMPT / run["prefill_s"],
-        "decode_s": run["decode_s"], "plain_decode_s": plain["decode_s"],
-        "decode_tok_s": LM_BATCH * LM_STEPS / run["decode_s"],
-        "long_prefill_s": run["long_prefill_s"], "plain_long_prefill_s": plain["long_prefill_s"],
-        "long_prefill_tok_s": LM_LONG / run["long_prefill_s"],
-        "rel_err_last_logits": rel["last"], "rel_err_long_last_logits": rel["long_last"],
-        "greedy_equal_share": same, "first_greedy_equal_share": first_same,
-        "launches": counts, "prefill_bound_share": roof["bound_share_of_kernel_path"],
-    }
-    print("lm: " + json.dumps(res), flush=True)
-    if max(rel.values()) > 0.1:
-        raise AssertionError(f"lm: last logits differ from the plain path by {rel} of their max")
+                              (params, {"tokens": batch["tokens"]}, LM_PROMPT + LM_STEPS),
+                              n_params, LM_BATCH * LM_PROMPT, res["prefill_s"])
+    if long_counts != {"flash_attention": cfg.n_layers}:
+        raise AssertionError(f"lm: the {LM_LONG}-token prefill launched {long_counts}, expected "
+                             f"flash_attention {cfg.n_layers}")
+    long_last, plain_long = long_last[:, :cfg.vocab_size].float(), plain_long[:, :cfg.vocab_size]
+    if long_last.shape != (1, cfg.vocab_size) or not torch.isfinite(long_last).all():
+        raise AssertionError(f"lm: the long prefill's last logits {tuple(long_last.shape)} are "
+                             f"malformed or not finite")
+    long_res = {"long_prefill_s": long_s, "plain_long_prefill_s": plain_long_s,
+                "long_prefill_tok_s": LM_LONG / long_s,
+                "rel_err_long_last_logits": rel_max(long_last, plain_long),
+                "prefill_bound_share": roof["bound_share_of_kernel_path"]}
+    print("lm long prefill: " + json.dumps(long_res), flush=True)
+    if long_res["rel_err_long_last_logits"] > 0.1:
+        raise AssertionError(f"lm: the long prefill differs from the plain path: {long_res}")
+    add_counts(counts, long_counts)
     return counts
 
 
@@ -1766,7 +1801,7 @@ def lm_against_plain(torch, name, model, plain_model, params, batch, steps, want
     total = {}
     for c in run["counts"].values():
         add_counts(total, c)
-    return total
+    return total, res
 
 
 def moe_path(torch, dev) -> dict:
@@ -1794,8 +1829,8 @@ def moe_path(torch, dev) -> dict:
     batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
     with torch.inference_mode():
         model.prefill(params, {"tokens": seq[:1, :64]})  # warm-up: cuBLAS, kernel attributes
-        counts = lm_against_plain(torch, "moe", model, plain_model, params, batch, LM_STEPS,
-                                  cfg.n_layers, dev)
+        counts, _ = lm_against_plain(torch, "moe", model, plain_model, params, batch, LM_STEPS,
+                                     cfg.n_layers, dev)
         with moe_drops() as prefill_drops:  # untimed: the prefill once more, counted
             model.prefill(params, {"tokens": batch["tokens"]})
 
@@ -1908,8 +1943,8 @@ def vlm_path(torch, dev) -> dict:
     batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:], "frontend": frontend}
     with torch.inference_mode():
         model.prefill(params, {"tokens": seq[:1, :8], "frontend": frontend[:1]})  # warm-up
-        counts = lm_against_plain(torch, "vlm", model, plain_model, params, batch, VLM_STEPS,
-                                  cfg.n_layers, dev)
+        counts, _ = lm_against_plain(torch, "vlm", model, plain_model, params, batch, VLM_STEPS,
+                                     cfg.n_layers, dev)
     print(f"vlm: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
     return counts
 
@@ -1936,10 +1971,120 @@ def encdec_path(torch, dev) -> dict:
     batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:], "frontend": frames}
     with torch.inference_mode():
         model.prefill(params, {"tokens": seq[:1, :8], "frontend": frames[:1]})  # warm-up
-        counts = lm_against_plain(torch, "encdec", model, plain_model, params, batch,
-                                  WHISPER_STEPS, cfg.n_enc_layers + 2 * cfg.n_dec_layers, dev)
+        counts, _ = lm_against_plain(torch, "encdec", model, plain_model, params, batch,
+                                     WHISPER_STEPS, cfg.n_enc_layers + 2 * cfg.n_dec_layers, dev)
     print(f"encdec: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
     return counts
+
+
+def xlstm_path(torch, dev) -> dict:
+    """Phase 8e: xlstm-1.3b, whole (see the module docstring).  The family
+    reaches no kernel.  Its prefill and decode steps are held against its
+    own forward over the prompt and the tokens the steps were fed (the step
+    recurrence against the chunkwise form).  With random weights the model
+    amplifies a rounding at every layer (a 1e-6 nudge of the embeddings
+    grows to 3e-4 of the residual stream in the first mLSTM layer and to
+    0.57 after 24 layers, in float32 on the CPU), so at full depth the two
+    forms part by rounding alone, in either precision and in the reference
+    too: there the distances are printed beside the model's own floor (the
+    float32 forward against itself with the embeddings nudged by one
+    ulp), and the identity is held within 0.1 over one macro block (8
+    layers) at full width in float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, xlstm
+    from repro_torch.models.common import count_params, tree_map
+
+    phase_start = time.perf_counter()
+    cfg = get_config("xlstm-1.3b")
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    print(f"xlstm: {cfg.name}, {cfg.n_layers} layers ({xlstm.n_macros(cfg)} x "
+          f"({cfg.xlstm_mlstm_per_macro} mLSTM + {cfg.xlstm_slstm_per_macro} sLSTM)), d_model "
+          f"{cfg.d_model}, {count_params(params)} params ({params['embed'].dtype}, {cfg.dtype} "
+          f"compute), init {time.perf_counter() - t0:.1f} s", flush=True)
+    seq = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1), generator=gen, device=dev)
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+
+    def against_forward(c, p, fed=None):
+        """prefill of the prompt, XLSTM_STEPS decode steps (greedy, or fed the
+        tokens ``fed``), then the forward over the prompt and the fed tokens:
+        (readings, fed, launches, the forward's logits)."""
+        m = build_model(c, device=dev)
+        (last, cache), prefill_s, prefill_counts = counted(
+            torch, lambda: m.prefill(p, {"tokens": batch["tokens"]}))
+        if fed is None:
+            first = last.argmax(-1)
+            (toks, rows), decode_s, decode_counts = counted(torch, lambda: greedy(
+                torch, m, p, cache, first, LM_PROMPT, XLSTM_STEPS, dev))
+            fed = torch.cat([first[:, None], toks[:, :-1]], dim=1)
+        else:
+            def forced():
+                nonlocal cache
+                out = []
+                for i in range(XLSTM_STEPS):
+                    pos = torch.full((LM_BATCH,), LM_PROMPT + i, dtype=torch.int32, device=dev)
+                    logits, cache = m.decode_step(p, cache, fed[:, i], pos)
+                    out.append(logits.float())
+                return torch.stack(out)
+            rows, decode_s, decode_counts = counted(torch, forced)
+        full = torch.cat([batch["tokens"], fed], dim=1)
+        logits, forward_s, forward_counts = counted(
+            torch, lambda: xlstm.xlstm_forward(p, full, c))
+        # the forward's logits at LM_PROMPT - 1 .. LM_PROMPT + XLSTM_STEPS - 1 are the
+        # prefill's last and each decode step's
+        want = logits[:, LM_PROMPT - 1:].float()
+        if (last.shape != (LM_BATCH, c.padded_vocab) or rows.shape[0] != XLSTM_STEPS
+                or not (torch.isfinite(want).all() and torch.isfinite(rows).all())):
+            raise AssertionError(f"xlstm {c.dtype}: outputs malformed or not finite")
+        res = {"prefill_vs_forward": rel_max(last, want[:, 0]),
+               "decode_vs_forward_max": max(rel_max(rows[i], want[:, i + 1])
+                                            for i in range(XLSTM_STEPS)),
+               "forward_s": forward_s, "prefill_s": prefill_s, "decode_s": decode_s,
+               "decode_ms_per_step": decode_s / XLSTM_STEPS * 1e3,
+               "prefill_tok_s": LM_BATCH * LM_PROMPT / prefill_s,
+               "forward_tok_s": full.numel() / forward_s,
+               "decode_tok_s": LM_BATCH * XLSTM_STEPS / decode_s}
+        counts = {"prefill": prefill_counts, "decode": decode_counts, "forward": forward_counts}
+        return res, fed, counts, (full, want)
+
+    torch.cuda.reset_peak_memory_stats()
+    f32 = cfg.replace(dtype="float32")
+    macro = f32.replace(n_layers=cfg.xlstm_mlstm_per_macro + cfg.xlstm_slstm_per_macro)
+    with torch.inference_mode():
+        model.loss_fn(params, {k: v[:1, :32] for k, v in batch.items()})  # warm-up
+        loss, loss_s, loss_counts = counted(torch, lambda: float(model.loss_fn(params, batch)))
+        res, fed, launches, _ = against_forward(cfg, params)
+        twin, _, twin_launches, (full, want) = against_forward(f32, params, fed)
+        nudged = {**params, "embed": params["embed"] * (1 + 2.0 ** -23)}
+        floor = rel_max(xlstm.xlstm_forward(nudged, full, f32)[:, LM_PROMPT:].float(),
+                        want[:, 1:])
+        del nudged, full, want
+        one, _, one_launches, _ = against_forward(
+            macro, {**params, "macros": tree_map(lambda a: a[:1], params["macros"])}, fed)
+    launches.update(loss_fn=loss_counts, **{f"float32_{k}": v for k, v in twin_launches.items()},
+                    **{f"macro_{k}": v for k, v in one_launches.items()})
+    if any(launches.values()):
+        raise AssertionError(f"xlstm: hand kernels launched: {launches}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"xlstm: loss {loss}")
+    res = {"loss": loss, "loss_s": loss_s, **res, "float32": twin,
+           "float32_nudged_forward_vs_forward": floor,
+           f"float32_{macro.n_layers}_layers": one,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "phase_s": time.perf_counter() - phase_start}
+    print("xlstm: " + json.dumps(res), flush=True)
+    held = {"prefill_vs_forward": res["prefill_vs_forward"],
+            "float32_prefill_vs_forward": twin["prefill_vs_forward"],
+            "one_macro_prefill_vs_forward": one["prefill_vs_forward"],
+            "one_macro_decode_vs_forward": one["decode_vs_forward_max"]}
+    if max(held.values()) > 0.1:
+        raise AssertionError(f"xlstm: a prefill, or a decode step over one macro block, "
+                             f"disagrees with the forward by more than 0.1 of the logits' "
+                             f"max: {held}")
+    return {}
 
 
 def gemma_full(torch, dev) -> tuple:
@@ -2614,6 +2759,206 @@ def cluster_path(torch, dev, cfg, model, params, single) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training
+# ---------------------------------------------------------------------------
+def leaf_paths(tree, prefix: str = "") -> list:
+    """[(path, tensor)] of a nested dict, depth first."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in leaf_paths(v, f"{prefix}/{k}")]
+    return [(prefix[1:], tree)]
+
+
+def params_rule(torch, got, want, sum_lr) -> dict:
+    """tests/test_torch_train.py's rule for params after AdamW steps: each
+    leaf within tolerance(float32, "nvidia-h100-sxm") but for at most 1 % of
+    its elements (at least one), every element within a quarter of the
+    summed lr (AdamW's update g / (|g| + eps) is steepest, 1/eps, at a zero
+    grad).  Returns the readings; raises past the rule."""
+    from repro_torch.kernels import guard
+
+    tol = guard.tolerance(torch.float32, CARD_HW)
+    outside, worst = 0, 0.0
+    for (name, a), (_, b) in zip(leaf_paths(got), leaf_paths(want)):
+        err = (a.float().cpu() - b.float().cpu()).abs()
+        n = int((err > tol.atol + tol.rtol * b.float().cpu().abs()).sum())
+        outside, worst = outside + n, max(worst, float(err.max()))
+        if n > max(1, b.numel() // 100) or float(err.max()) > 0.25 * sum_lr:
+            raise AssertionError(f"train: leaf {name} has {n} of {b.numel()} elements outside "
+                                 f"256 ulps, the worst {float(err.max())} (sum of lr {sum_lr})")
+    return {"elements_outside_256_ulps": outside, "max_abs_err": worst,
+            "max_abs_err_over_sum_lr": worst / sum_lr}
+
+
+def train_path(torch, dev) -> dict:
+    """Phase 12: training (see the module docstring).  Returns the launch
+    counts of (a)'s steps, which must be none."""
+    import importlib.util
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline, SyntheticLM
+    from repro_torch.kernels import _util, api
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params, tree_map
+    from repro_torch.optim import AdamW, cosine_with_warmup, global_norm
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.step import TrainState, make_train_step, value_and_grad
+
+    phase_start = time.perf_counter()
+    # (a) gemma-2b at full width and depth, as the reference trains it
+    cfg = get_config("gemma-2b")
+    if (cfg.attn_impl, cfg.remat, cfg.remat_policy, cfg.dtype, cfg.param_dtype) != (
+            "blockwise", True, "full", "bfloat16", "float32"):
+        raise AssertionError(f"train: gemma-2b's config trains on {cfg}")
+    model = build_model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    print(f"train: {cfg.name}, {count_params(params)} fp32 params, attn_impl {cfg.attn_impl}, "
+          f"remat {cfg.remat_policy}, {cfg.dtype} compute; batches {TRAIN_BATCH} x {TRAIN_SEQ}",
+          flush=True)
+    src = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    pipe = DataPipeline(src.batch_at, device=dev, prefetch=0)
+    first = next(pipe)[1]
+    _util.reset_launch_counts()
+    loss0, grads = value_and_grad(model.loss_fn, params, first)
+    zero = [name for name, g in leaf_paths(grads) if not bool(g.ne(0).any())]
+    finite = all(bool(torch.isfinite(g).all()) for _, g in leaf_paths(grads))
+    gnorm0 = float(global_norm(grads))
+    del grads
+    if zero or not finite:
+        raise AssertionError(f"train: leaves without a nonzero gradient {zero}; finite {finite}")
+    opt = AdamW()
+    state = TrainState(params, opt.init(params))
+    lr_fn = cosine_with_warmup(TRAIN_LR, 1, TRAIN_STEPS)
+    step = make_train_step(model.loss_fn, opt, lr_fn)
+    pipe.seek(0)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = next(pipe)[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])  # waits for the step
+        dt = time.perf_counter() - t0
+        steps.append({"step": i, "loss": loss, "grad_norm": float(m["grad_norm"]),
+                      "lr": float(m["lr"]), "step_s": dt, "tok_s": TRAIN_BATCH * TRAIN_SEQ / dt})
+        print(f"train step {i}: " + json.dumps(steps[-1]), flush=True)
+    launches = _util.launch_counts()
+    with torch.no_grad():
+        loss_after = float(model.loss_fn(params, first))
+    res = {"loss_first_batch_before": float(loss0), "loss_first_batch_after": loss_after,
+           "grad_norm_first_batch": gnorm0, "leaves_with_grad": len(leaf_paths(params)),
+           "step_s_median": sorted(r["step_s"] for r in steps[1:])[(TRAIN_STEPS - 1) // 2],
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": launches}
+    res["tok_s_median"] = TRAIN_BATCH * TRAIN_SEQ / res["step_s_median"]
+    print("train gemma-2b: " + json.dumps(res), flush=True)
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps):
+        raise AssertionError(f"train: non-finite loss or grad norm: {steps}")
+    if not loss_after < float(loss0):
+        raise AssertionError(f"train: the first batch's loss did not fall: {res}")
+    if launches:
+        raise AssertionError(f"train: the training path launched hand kernels: {launches}")
+    del state, params, m, step, pipe, first, batch, model
+    torch.cuda.empty_cache()
+
+    # (b) the same step at reduced() float32 on the card against the CPU
+    rcfg = get_config("gemma-2b").reduced()
+    host = build_model(rcfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rsrc = SyntheticLM(rcfg.vocab_size, 32, 4, seed=0)
+    runs = {}
+    for where in ("cpu", dev):
+        m_ = build_model(rcfg, device=where)
+        o = AdamW()
+        p = tree_map(lambda t: t.to(where, copy=True), host)
+        st = TrainState(p, o.init(p))
+        fn = make_train_step(m_.loss_fn, o, cosine_with_warmup(TRAIN_LR, 0, TRAIN_CPU_STEPS))
+        losses = []
+        for i in range(TRAIN_CPU_STEPS):
+            st, mm = fn(st, {k: torch.from_numpy(v).to(where) for k, v in rsrc.batch_at(i).items()})
+            losses.append(float(mm["loss"]))
+        runs["cpu" if where == "cpu" else "card"] = (losses, st.params)
+    sum_lr = sum(float(cosine_with_warmup(TRAIN_LR, 0, TRAIN_CPU_STEPS)(i))
+                 for i in range(TRAIN_CPU_STEPS))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["card"][0], runs["cpu"][0]))
+    rule = params_rule(torch, runs["card"][1], runs["cpu"][1], sum_lr)
+    reduced = {"losses_card": runs["card"][0], "losses_cpu": runs["cpu"][0],
+               "loss_rel_max": loss_rel, **rule}
+    print("train reduced float32, card against the CPU: " + json.dumps(reduced), flush=True)
+    if loss_rel > 1e-4:
+        raise AssertionError(f"train: the card's losses differ from the CPU's: {reduced}")
+    del runs
+
+    # (c) examples/train_tiny_lm_torch.py at its defaults, its failure and resume,
+    # against the same run uninterrupted (the embedding's backward adds with
+    # atomics on the card, so the two agree only within a tolerance)
+    spec = importlib.util.spec_from_file_location(
+        "train_tiny_lm_torch", os.path.join(ROOT, "examples", "train_tiny_lm_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    argv = ["--device", dev.type]  # the default on the card
+    t0 = time.perf_counter()
+    resumed = example.main(argv)
+    example_s = time.perf_counter() - t0
+    args = example.parse_args(argv)
+    step_fn, fresh_state, tsrc = example.make_run(args, dev)
+    upipe = DataPipeline(tsrc.batch_at, device=dev, prefetch=2)
+    try:
+        _, whole = train_loop(step_fn, fresh_state(), upipe, cfg=LoopConfig(total_steps=args.steps))
+    finally:
+        upipe.close()
+    diffs = [abs(r["loss"] - whole[r["step"]]["loss"]) for r in resumed]
+    example_res = {"example_s": example_s, "resumed_from": resumed[0]["step"],
+                   "resumed_steps": len(resumed), "loss_first": whole[0]["loss"],
+                   "loss_last_resumed": resumed[-1]["loss"],
+                   "loss_last_uninterrupted": whole[-1]["loss"],
+                   "resumed_vs_uninterrupted_max_abs": max(diffs)}
+    print("train example (train_tiny_lm_torch.py defaults): " + json.dumps(example_res),
+          flush=True)
+    if example_res["resumed_from"] != args.steps // 2 or max(diffs) > EXAMPLE_RESUME_ATOL:
+        raise AssertionError(f"train: the example's resume is off: {example_res}")
+    torch.cuda.empty_cache()
+
+    # (d) the launcher at gemma-2b's full width, in a subprocess
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *TRAIN_LAUNCH_ARGV],
+                          cwd=ROOT, env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+                          capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-3:]
+    print(f"train launcher {' '.join(TRAIN_LAUNCH_ARGV)}: rc {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; {tail}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"train: the launcher exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+
+    # (e) a hand kernel under autograd raises on the card, before it launches
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn((1, 128, 2, 64), generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    _util.reset_launch_counts()
+    try:
+        api.flash_attention(q.requires_grad_(True), k, v)
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("train: flash_attention under autograd did not raise")
+    pcfg = rcfg.replace(attn_impl="pallas")
+    pm = build_model(pcfg, device=dev)
+    pparams = pm.init(torch.Generator(device=dev).manual_seed(0))
+    pbatch = {k: torch.from_numpy(v).to(dev) for k, v in rsrc.batch_at(0).items()}
+    try:
+        value_and_grad(pm.loss_fn, pparams, pbatch)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("train: value_and_grad through the flash kernel did not raise")
+    if _util.launch_counts():
+        raise AssertionError(f"train: a refused call launched {_util.launch_counts()}")
+    print(f"train: a hand kernel under autograd raises on the card: {refusal!r}", flush=True)
+    print(f"train: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
+    return launches
+
+
 def roofline_share(name, fn, args, n_params, tokens, measured_s) -> dict:
     """Count ``fn(*args)`` once, untimed (``perfmodel.extract_costs``: ATen
     FLOPs and bytes, so on the plain path, whose ops it sees), roofline it
@@ -2677,7 +3022,7 @@ def main() -> int:
     add_counts(counts, lm_path(torch, dev))
     torch.cuda.empty_cache()  # gemma's params are gone; zamba2's 27 GB come next
     add_counts(counts, zamba_path(torch, dev))
-    for path in (moe_path, vlm_path, encdec_path):
+    for path in (moe_path, vlm_path, encdec_path, xlstm_path):
         torch.cuda.empty_cache()  # the last model's params are gone; the next one's come
         add_counts(counts, path(torch, dev))
     torch.cuda.empty_cache()  # whisper's params are gone; gemma-2b's come back
@@ -2688,7 +3033,9 @@ def main() -> int:
     single["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     add_counts(counts, serving_counts)
     add_counts(counts, cluster_path(torch, dev, cfg, model, params, single))
-    del params
+    del params, model, single
+    torch.cuda.empty_cache()  # the training phase needs the card's memory
+    add_counts(counts, train_path(torch, dev))
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print("kernels: " + " ".join(KERNELS))
@@ -2703,7 +3050,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
         entry.update({k: v for k, v in r.items()
-                      if k in ("latency_bound_ms", "tflops", "row_rel_err", "sweep_256mib",
+                      if k in ("latency_bound_ms", "sm_clock_mhz", "tflops", "row_rel_err", "sweep_256mib",
                                "transpose_ms", "ns_per_op", "ssm_routes", "ms_passes")
                       or k.endswith((*FLASH_SHAPE_SUFFIXES, "_4096", "_chunk512", "_fp16"))})
         line.append(entry)

@@ -12,7 +12,11 @@ every kernel is a registered :class:`KernelOp` with named **backends**:
 
 When neither the call nor the policy names a backend, the tensors decide: a
 CUDA tensor dispatches to ``"cuda"``, a CPU tensor to ``"torch"``.  Asking for
-``"cuda"`` with CPU tensors raises.
+``"cuda"`` with CPU tensors raises.  A ``"cuda"`` call raises
+``NotImplementedError`` while grad is enabled and an input requires grad: the
+hand kernels write their outputs through ``ctypes`` and have no backward, as
+the reference's Pallas kernels have none, so autograd would otherwise detach
+them silently.  The models train on their plain paths, as the reference's do.
 
 A context-local :func:`kernel_policy` scopes the backend, tile overrides and
 autotuning::
@@ -74,6 +78,17 @@ BACKENDS = ("cuda", "torch")
 def default_backend(device) -> str:
     """The backend used when neither the call nor the policy names one."""
     return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
+def _refuse_autograd(name: str, args) -> None:
+    """Raise where a hand kernel would sit in an autograd graph."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
+                                       for a in args):
+        raise NotImplementedError(
+            f"op {name!r}: the cuda backend's hand kernel has no backward (the reference has "
+            f"none for its Pallas kernel either); differentiate the plain path (e.g. "
+            f"attn_impl='blockwise', ssm_impl='xla') or call it under torch.no_grad()"
+        )
 
 
 def _args_device(args) -> torch.device:
@@ -237,11 +252,13 @@ class KernelOp:
         be = resolve_backend(backend, device)
         if be not in BACKENDS:
             raise ValueError(f"unknown backend {be!r}; expected one of {BACKENDS}")
-        if be == "cuda" and device.type != "cuda":
-            raise ValueError(
-                f"op {self.name!r}: backend 'cuda' runs the hand kernel and needs CUDA "
-                f"tensors, got tensors on {device}; use backend='torch' on the CPU"
-            )
+        if be == "cuda":
+            _refuse_autograd(self.name, args)
+            if device.type != "cuda":
+                raise ValueError(
+                    f"op {self.name!r}: backend 'cuda' runs the hand kernel and needs CUDA "
+                    f"tensors, got tensors on {device}; use backend='torch' on the CPU"
+                )
         impl = self.impl(be)
         # a kwarg no backend understands is a caller bug, not a backend
         # difference — raise instead of silently running with defaults
@@ -271,6 +288,7 @@ class KernelOp:
                 _guard.state().metrics.degraded_calls += 1
                 be = "torch"
             return self.bound(*args, backend=be, **kwargs)(*args)
+        _refuse_autograd(self.name, args)  # before the guard can count it as a fault
         return _guard.state().guarded_call(self, args, kwargs, be, mode)
 
     def __repr__(self) -> str:

@@ -3,9 +3,9 @@
 Port of ``repro.models.api``.  ``build_model(cfg)`` returns a
 :class:`ModelApi`, a frozen bundle of functions closed over the config.
 State (params, caches) flows through arguments and return values, never
-through the object.  The port has the dense, MoE, VLM, hybrid (zamba2) and
-encoder-decoder (whisper) families; the recurrent ``ssm`` family (xlstm)
-raises ``NotImplementedError`` naming the family.
+through the object.  The port has every family of the reference: dense, MoE,
+VLM, the recurrent ``ssm`` family (xlstm), hybrid (zamba2) and
+encoder-decoder (whisper).
 
 Two KV-cache layouts coexist behind the same façade, as in the reference:
 
@@ -17,8 +17,9 @@ Two KV-cache layouts coexist behind the same façade, as in the reference:
   take an extra ``block_table (B, T)`` mapping each lane's logical position
   ``t`` to pool page ``bt[b, t // page]``.
 
-The hybrid and encoder-decoder families keep ``decode_chunk`` and the paged
-fields ``None``, as in the reference, so the serving engine refuses them.
+The ssm, hybrid and encoder-decoder families keep ``decode_chunk`` and the
+paged fields ``None``, as in the reference, so the serving engine refuses
+them.
 The reference's cache sharding fields wait for the port's distribution
 layer (ROADMAP.md).
 """
@@ -32,7 +33,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from . import attention as attn
-from . import encdec, mamba, transformer
+from . import encdec, mamba, transformer, xlstm
 from . import mlp as mlps
 from .common import apply_rope, as_dtype, rmsnorm, token_positions
 
@@ -88,12 +89,11 @@ def _cache_dtype(cfg):
 def build_model(cfg: ModelConfig, device="cuda") -> ModelApi:
     """The model surface for ``cfg`` on ``device`` (the card unless the
     caller passes ``"cpu"``)."""
-    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (queued in ROADMAP.md); "
-            "build_model supports the dense, moe, vlm, hybrid and encdec families"
-        )
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "encdec"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     device = torch.device(device)
+    if cfg.family == "ssm":  # xlstm
+        return _xlstm_model(cfg, device)
     if cfg.family == "hybrid":  # zamba2
         return _hybrid_model(cfg, device)
     if cfg.family == "encdec":  # whisper
@@ -149,6 +149,30 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelApi:
 def _check_generator(gen: torch.Generator, device: torch.device) -> None:
     if torch.device(gen.device).type != device.type:
         raise ValueError(f"generator on {gen.device} for a model on {device}")
+
+
+def _xlstm_model(cfg: ModelConfig, device: torch.device) -> ModelApi:
+    def init(gen: torch.Generator):
+        _check_generator(gen, device)
+        return xlstm.xlstm_init(gen, cfg)
+
+    def loss_fn(params, batch):
+        return xlstm.xlstm_loss(params, batch, cfg)
+
+    def prefill(params, batch, max_len: Optional[int] = None):
+        # recurrent: the cache is the final state, whatever max_len
+        return xlstm.xlstm_prefill(params, batch["tokens"], cfg)
+
+    def decode_step(params, cache, tokens, pos):
+        return xlstm.xlstm_decode_step(params, cache, tokens, pos, cfg)
+
+    def init_cache(batch, max_len):
+        return xlstm.xlstm_init_cache(cfg, batch, max_len, device=device)
+
+    def cache_specs(batch, max_len):
+        return xlstm.xlstm_cache_specs(cfg, batch, max_len)
+
+    return ModelApi(cfg, device, init, loss_fn, prefill, decode_step, init_cache, cache_specs)
 
 
 def _hybrid_model(cfg: ModelConfig, device: torch.device) -> ModelApi:

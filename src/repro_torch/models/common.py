@@ -163,5 +163,28 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def remat(fn, cfg, policy: str = "full"):
+    """``fn`` checkpointed per call (the reference's ``jax.checkpoint`` of a
+    layer block) when ``cfg.remat`` is set and grad is enabled; serving
+    calls, without grad, run it as it is.  ``policy`` "full" recomputes the
+    whole block in the backward; "dots" saves the matmul outputs
+    (``aten.mm``/``aten.bmm``, what the block's einsums reduce to) and
+    recomputes the rest.  Recomputing changes no number."""
+    if not cfg.remat:
+        return fn
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if policy == "dots":
+            ops = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default]
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=lambda: create_selective_checkpoint_contexts(ops))
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return run
+
+
 def count_params(params) -> int:
     return sum(int(p.numel()) for p in tree_leaves(params))

@@ -7,7 +7,9 @@ same nested dict, the same shapes and dtypes, as torch tensors on
 layer-stacked with a leading ``n_layers`` axis (the MoE leaves are (L, E,
 d, f)); the encoder-decoder's (``encdec_init``) lead with
 ``(n_enc_layers,)`` under ``enc_layers`` and ``(n_dec_layers,)`` under
-``dec_layers``; the hybrid's (``zamba_init``) lead with ``(n_super, per)``
+``dec_layers``; the xLSTM's (``xlstm_init``) with ``(n_macros,
+mlstm_per_macro)`` under ``macros/mlstm`` and ``(n_macros,)`` under
+``macros/slstm``; the hybrid's (``zamba_init``) lead with ``(n_super, per)``
 under ``supers`` and ``(tail,)`` under ``tail``.  The tests use it to
 give both packages the same weights.
 """
@@ -18,6 +20,7 @@ import torch
 
 from .common import tree_leaves, tree_map
 from .mamba import _zamba_counts
+from .xlstm import n_macros
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16, "bfloat16": torch.bfloat16}
 
@@ -32,33 +35,42 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _stacks(cfg) -> dict:
-    """Each stacked subtree and the leading shape its leaves must have."""
+    """Each stacked subtree (its path of keys) and the leading shape its
+    leaves must have."""
     if cfg.family in ("dense", "moe", "vlm"):
-        return {"layers": (cfg.n_layers,)}
+        return {("layers",): (cfg.n_layers,)}
     if cfg.family == "encdec":
-        return {"enc_layers": (cfg.n_enc_layers,), "dec_layers": (cfg.n_dec_layers,)}
+        return {("enc_layers",): (cfg.n_enc_layers,), ("dec_layers",): (cfg.n_dec_layers,)}
+    if cfg.family == "ssm":
+        nm = n_macros(cfg)
+        return {("macros", "mlstm"): (nm, cfg.xlstm_mlstm_per_macro), ("macros", "slstm"): (nm,)}
     n_super, per, tail = _zamba_counts(cfg)
-    return {"supers": (n_super, per), **({"tail": (tail,)} if tail else {})}
+    return {("supers",): (n_super, per), **({("tail",): (tail,)} if tail else {})}
 
 
 def params_from_jax(tree, cfg, device="cuda") -> dict:
-    """The reference's transformer-LM, encoder-decoder or hybrid params (numpy
-    leaves) as the port's, on ``device`` (the card unless the caller passes
-    ``"cpu"``)."""
+    """The reference's params (numpy leaves) of any family as the port's, on
+    ``device`` (the card unless the caller passes ``"cpu"``)."""
     if cfg.family in ("dense", "moe", "vlm"):
         want = {"embed", "layers", "final_norm"} | (set() if cfg.tie_embeddings else {"lm_head"})
     elif cfg.family == "encdec":
-        want = {"embed", "enc_norm", "dec_norm"} | set(_stacks(cfg))
+        want = {"embed", "enc_layers", "dec_layers", "enc_norm", "dec_norm"}
+    elif cfg.family == "ssm":
+        want = {"embed", "macros", "final_norm", "lm_head"}
     elif cfg.family == "hybrid":
-        want = {"embed", "supers", "shared_attn", "final_norm", "lm_head"} | set(_stacks(cfg))
+        want = {"embed", "supers", "shared_attn", "final_norm", "lm_head"} | (
+            {"tail"} if _zamba_counts(cfg)[2] else set())
     else:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md)")
+        raise ValueError(f"unknown family {cfg.family!r}")
     if set(tree) != want:
         raise ValueError(f"params have keys {sorted(tree)}, expected {sorted(want)}")
     params = tree_map(lambda a: _tensor(a, device), tree)
-    for name, lead in _stacks(cfg).items():
-        for leaf in tree_leaves(params[name]):
+    for path, lead in _stacks(cfg).items():
+        sub = params
+        for key in path:
+            sub = sub[key]
+        for leaf in tree_leaves(sub):
             if tuple(leaf.shape[:len(lead)]) != lead:
-                raise ValueError(f"{name} has a leaf of shape {tuple(leaf.shape)}, expected "
-                                 f"leading axes {lead}")
+                raise ValueError(f"{'/'.join(path)} has a leaf of shape {tuple(leaf.shape)}, "
+                                 f"expected leading axes {lead}")
     return params

@@ -5,13 +5,17 @@ the reference: the caller supplies precomputed frame embeddings (B,
 frontend_len, d_model).  Sinusoidal absolute positions on both encoder and
 decoder (the reference's deviation from Whisper's learned decoder
 positions).  Parameters are layer-stacked (``enc_layers`` and
-``dec_layers`` lead with the layer axis); the layers run as a Python loop.
+``dec_layers`` lead with the layer axis); the layers run as a Python loop,
+each checkpointed (``common.remat``) when ``cfg.remat`` is set and grad is
+enabled.
 With ``attn_impl="pallas"`` the encoder (non-causal), the decoder's self
 attention (causal) and its cross attention (non-causal, Sq != Skv) go
 through the flash kernel; the decode step is plain torch ops, as the
 reference's is plain jnp.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -24,11 +28,12 @@ from .common import (
     layernorm,
     layernorm_init,
     mask_vocab_pad,
+    remat,
     sinusoidal_positions,
     softmax_xent,
     token_positions,
 )
-from .transformer import embed_tokens, layer_params
+from .transformer import embed_tokens, layer_list, layer_params
 
 
 # ---------------------------------------------------------------------------
@@ -119,8 +124,9 @@ def encode(params: Params, frames: torch.Tensor, cfg) -> torch.Tensor:
     b, f, _ = frames.shape
     x = frames.to(dt) + sinusoidal_positions(f, cfg.d_model, frames.device).to(dt)
     positions = token_positions(b, f, x.device)
-    for i in range(cfg.n_enc_layers):
-        x = _enc_block(cfg, layer_params(params["enc_layers"], i), x, positions)
+    block = remat(partial(_enc_block, cfg), cfg)
+    for lp in layer_list(params["enc_layers"]):
+        x = block(lp, x, positions)
     return layernorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -136,12 +142,16 @@ def _decode(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor, cfg) ->
     x = embed_tokens(params, tokens, cfg)
     x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)
     positions = token_positions(b, s, x.device)
-    kvs = []
-    for i in range(cfg.n_dec_layers):
-        lp = layer_params(params["dec_layers"], i)
+    def layer(lp, x, enc_out):
         ck, cv = _cross_kv(lp["cross_attn"], enc_out)
         x, (k, v) = _dec_block(cfg, lp, x, positions, ck, cv)
-        kvs.append((k, v, ck, cv))
+        return x, (k, v, ck, cv)
+
+    block = remat(layer, cfg)
+    kvs = []
+    for lp in layer_list(params["dec_layers"]):
+        x, kv = block(lp, x, enc_out)
+        kvs.append(kv)
     return layernorm(params["dec_norm"], x, cfg.norm_eps), kvs
 
 
@@ -152,7 +162,7 @@ def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
 
 
 def encdec_loss(params: Params, batch: dict, cfg) -> torch.Tensor:
-    """Mean token cross-entropy (forward only; training is a later slice)."""
+    """Mean token cross-entropy."""
     enc_out = encode(params, batch["frontend"], cfg)
     logits = decode_train(params, batch["tokens"], enc_out, cfg)
     return softmax_xent(logits, batch["targets"]).mean()

@@ -12,10 +12,13 @@ Zamba2 layout (see configs/zamba2_7b.py): 13 super-units of [shared-attn +
 shared-attention applications.  Parameters are stacked as the reference's
 ``vmap`` gives them (``supers`` leaves lead with ``(n_super, per)``, ``tail``
 leaves with ``(tail,)``); the layers run as Python loops over those axes.
-The reference's sharding pins and ``remat`` (a training-memory option) are
-left out.
+The reference's sharding pins are left out; each Mamba2 residual layer of
+the full-sequence forward is checkpointed (``common.remat``) when
+``cfg.remat`` is set and grad is enabled, as the reference's.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -28,12 +31,13 @@ from .common import (
     as_dtype,
     dense_init,
     embed_init,
+    remat,
     rmsnorm,
     rmsnorm_init,
     softmax_xent,
     token_positions,
 )
-from .transformer import embed_tokens, layer_params
+from .transformer import embed_tokens, layer_list
 
 
 # ---------------------------------------------------------------------------
@@ -226,9 +230,9 @@ def _units(params: Params, cfg) -> list:
     application (its KV-cache slot is the list's index): the super-units,
     then the tail.  Each layer's params are views into the stacked tensors."""
     n_super, per, tail = _zamba_counts(cfg)
-    units = [[layer_params(params["supers"], (i, j)) for j in range(per)] for i in range(n_super)]
+    units = [layer_list(sup) for sup in layer_list(params["supers"])]
     if tail:
-        units.append([layer_params(params["tail"], j) for j in range(tail)])
+        units.append(layer_list(params["tail"]))
     return units
 
 
@@ -261,16 +265,17 @@ def zamba_forward(params: Params, tokens: torch.Tensor, cfg):
     x0 = x
     b, s, _ = x.shape
     positions = token_positions(b, s, x.device)
+    mamba_res = remat(partial(_mamba_residual, cfg), cfg)
     for layers in _units(params, cfg):
         x = _shared_attn_apply(cfg, params["shared_attn"], x, x0, positions)
         for lp in layers:
-            x = _mamba_residual(cfg, lp, x)
+            x = mamba_res(lp, x)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
 
 
 def zamba_loss(params: Params, batch: dict, cfg) -> torch.Tensor:
-    """Mean token cross-entropy (forward only; training is a later slice)."""
+    """Mean token cross-entropy."""
     logits = zamba_forward(params, batch["tokens"], cfg)
     return softmax_xent(logits, batch["targets"]).mean()
 

@@ -3,13 +3,15 @@
 
 Port of ``repro.models.transformer``.  Parameters are layer-stacked as in
 the reference (``params["layers"][name]`` has a leading ``n_layers`` axis);
-the layers run as a Python loop over that axis.  The reference's sharding
+the layers run as a Python loop over that axis, each block checkpointed
+(``common.remat``) when ``cfg.remat`` is set and grad is enabled.  The reference's sharding
 pins are multi-device and are left out.  The serving engine's steps —
 chunked decode (``lm_decode_chunk``) and its paged twins — are plain torch
 ops, as the reference's are plain jnp.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -21,11 +23,13 @@ from .common import (
     as_dtype,
     embed_init,
     mask_vocab_pad,
+    remat,
     rmsnorm,
     rmsnorm_init,
     scalar,
     softmax_xent,
     token_positions,
+    tree_leaves,
     tree_map,
 )
 
@@ -61,6 +65,16 @@ def layer_params(layers: Params, i) -> Params:
     """Layer ``i``'s params (an index, or a tuple of them into several stacked
     axes): a view into each stacked tensor."""
     return tree_map(lambda a: a[i], layers)
+
+
+def layer_list(layers: Params) -> list:
+    """Every layer's params along the stacked leading axis, views made by one
+    ``unbind`` of each leaf.  Under autograd its backward stacks the layers'
+    grads in one op, where indexing each layer out (:func:`layer_params`)
+    adds a zero-filled copy of the whole stack per layer."""
+    split = tree_map(lambda a: a.unbind(0), layers)
+    return [tree_map(lambda parts: parts[i], split)
+            for i in range(tree_leaves(layers)[0].shape[0])]
 
 
 # ---------------------------------------------------------------------------
@@ -149,8 +163,9 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg, frontend=None):
     b, s, _ = x.shape
     positions = token_positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = _block_apply(cfg, layer_params(params["layers"], i), x, positions)
+    block = remat(partial(_block_apply, cfg), cfg, cfg.remat_policy)
+    for lp in layer_list(params["layers"]):
+        x, a = block(lp, x, positions)
         aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, x, cfg), aux
@@ -158,7 +173,7 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg, frontend=None):
 
 def lm_loss(params: Params, batch: dict, cfg) -> torch.Tensor:
     """Mean token cross-entropy, plus the MoE aux loss averaged over the
-    layers (forward only; training is a later slice)."""
+    layers."""
     frontend = batch.get("frontend")
     logits, aux = lm_forward(params, batch["tokens"], cfg, frontend)
     if frontend is not None:  # loss only over the text span

@@ -1014,3 +1014,68 @@ def test_serving_cluster_suites_on_the_card(dev, suite):
     assert all(np.isfinite(r.value) for r in recs)
     if suite == "serving_chaos":  # 6 requests x 8 tokens: the guarded legs run
         assert any(n.startswith("serving_chaos_guard_") for n in names)
+
+
+# ---------------------------------------------------------------------------
+# training: a hand kernel under autograd raises; the plain path trains
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("op", ["flash_attention", "ssm_scan", "matmul"])
+def test_hand_kernel_under_autograd_raises_on_the_card(dev, op):
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g, device=dev, dtype=torch.bfloat16)  # noqa: E731
+    args = {"flash_attention": lambda: (r(1, 128, 2, 64), r(1, 128, 2, 64), r(1, 128, 2, 64)),
+            "ssm_scan": lambda: (r(1, 256, 2, 64), -r(1, 256, 2).float().abs(), r(1, 256, 64),
+                                 r(1, 256, 64)),
+            "matmul": lambda: (r(256, 256), r(256, 256))}[op]
+    fn = getattr(tapi, op)
+    launched = lambda: sum(_util.launch_counts().values())  # noqa: E731 (matmul_bf16 ...)
+    before = launched()
+    first, *rest = args()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fn(first.requires_grad_(True), *rest)
+    assert launched() == before  # refused before any launch
+    with torch.no_grad():
+        out = fn(first, *rest)
+    torch.cuda.synchronize()
+    assert not out.requires_grad and launched() == before + 1
+
+
+def test_train_steps_on_the_card_match_the_cpu(dev):
+    """Three make_train_step steps of gemma-2b reduced in float32, on the
+    card and on the CPU from the same params and batches: losses within
+    1e-4 relative; each param leaf within tolerance(float32,
+    "nvidia-h100-sxm") but for at most 1 % of its elements, and every element
+    within a quarter of the summed lr (AdamW's steepest slope, 1/eps at a
+    zero grad: tests/test_torch_train.py's rule)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import guard
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import AdamW, cosine_with_warmup
+    from repro_torch.train.step import TrainState, make_train_step
+
+    cfg = get_config("gemma-2b").reduced()
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    src = SyntheticLM(cfg.vocab_size, 32, 4, seed=0)
+    runs = {}
+    for where in ("cpu", dev):
+        model = build_model(cfg, device=where)
+        opt = AdamW()
+        p = tree_map(lambda t: t.to(where, copy=True), params)  # the steps write in place
+        state = TrainState(p, opt.init(p))
+        step = make_train_step(model.loss_fn, opt, cosine_with_warmup(1e-3, 0, 3))
+        losses = []
+        for s in range(3):
+            state, m = step(state, {k: torch.from_numpy(v).to(where)
+                                    for k, v in src.batch_at(s).items()})
+            losses.append(float(m["loss"]))
+        runs[str(where)] = (losses, [t.cpu() for t in tree_leaves(state.params)])
+    (cl, cp), (gl, gp) = runs["cpu"], runs[str(dev)]
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+    tol = guard.tolerance(torch.float32, "nvidia-h100-sxm")
+    sum_lr = float(sum(cosine_with_warmup(1e-3, 0, 3)(s) for s in range(3)))
+    for a, b in zip(gp, cp):
+        err = (a - b).abs()
+        assert int((err > tol.atol + tol.rtol * b.abs()).sum()) <= max(1, b.numel() // 100)
+        assert float(err.max()) <= 0.25 * sum_lr

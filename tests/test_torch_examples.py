@@ -2,7 +2,9 @@
 in quick mode with ``--device cpu``.  It prints the reference example's
 sections (``examples/dissect_hardware.py``) plus the fit against the H100
 datasheet record, and with no card visible its default ``--device cuda``
-exits non-zero without measuring the host.
+exits non-zero without measuring the host.  The two training examples
+(``train_tiny_lm_torch.py``, ``quickstart_torch.py``) run small on the CPU
+the same way: the injected failure and resume, and one autograd step.
 """
 import importlib.util
 import json
@@ -11,6 +13,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,3 +49,60 @@ def test_example_imports_no_jax_and_no_reference():
     source = EXAMPLE.read_text()
     assert "repro_torch" in source
     assert not re.search(r"^\s*(import|from)\s+(jax|repro)\b(?!_)", source, re.MULTILINE)
+
+
+# ---------------------------------------------------------------------------
+# the two training examples, small, on the CPU
+# ---------------------------------------------------------------------------
+TRAIN_EXAMPLES = {name: ROOT / "examples" / f"{name}.py"
+                  for name in ("train_tiny_lm_torch", "quickstart_torch")}
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(name, TRAIN_EXAMPLES[name])
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_train_tiny_lm_example_fails_over_and_resumes_on_the_cpu(capsys):
+    """The resumed run's losses equal an uninterrupted run's bit for bit."""
+    from repro_torch.data import DataPipeline
+    from repro_torch.train.loop import LoopConfig, train_loop
+
+    example = _load("train_tiny_lm_torch")
+    argv = ["--device", "cpu", "--steps", "20", "--d-model", "64", "--layers", "1", "--seq",
+            "32", "--batch", "4", "--vocab", "256"]
+    hist = example.main(argv)
+    out = capsys.readouterr().out
+    assert "!! injected failure at step 10 — resuming from last checkpoint" in out
+    assert hist[0]["step"] == 10 and hist[-1]["step"] == 19  # resumed from the step-10 save
+    assert hist[-1]["loss"] < hist[0]["loss"] and "done: loss" in out
+    step_fn, fresh_state, src = example.make_run(example.parse_args(argv), torch.device("cpu"))
+    _, whole = train_loop(step_fn, fresh_state(), DataPipeline(src.batch_at, prefetch=0,
+                                                               device="cpu"),
+                          cfg=LoopConfig(total_steps=20))
+    assert [h["loss"] for h in whole[10:]] == [h["loss"] for h in hist]
+
+
+def test_quickstart_example_on_the_cpu(capsys):
+    loss, loss2 = _load("quickstart_torch").main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    for section in ("== dissecting cpu (quick probes) ==", "== nvidia-h100-sxm model",
+                    "== autotuned tiles for 4096^3 bf16 matmul on nvidia-h100-sxm",
+                    "after one step ==", "== decoded one token per sequence:"):
+        assert section in out
+    assert loss2 < loss
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_EXAMPLES))
+def test_training_examples_need_the_card_unless_asked_and_import_no_jax(name):
+    source = TRAIN_EXAMPLES[name].read_text()
+    assert "repro_torch" in source
+    assert not re.search(r"^\s*(import|from)\s+(jax|repro)\b(?!_)", source, re.MULTILINE)
+    if not torch.cuda.is_available():
+        proc = subprocess.run([sys.executable, str(TRAIN_EXAMPLES[name])], capture_output=True,
+                              text=True, timeout=120, env={"PYTHONPATH": str(ROOT / "src"),
+                                                           "PATH": "/usr/bin:/bin"})
+        assert proc.returncode != 0 and "no CUDA device is visible" in proc.stderr
+        assert "loss" not in proc.stdout

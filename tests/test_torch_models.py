@@ -23,6 +23,7 @@ import torch
 from repro import configs as jconfigs
 from repro.kernels import guard
 from repro.models import attention as jattn
+from repro.models import build_model as jbuild
 from repro.models import common as jcommon
 from repro.models import mlp as jmlp
 from repro.models import transformer as jtr
@@ -258,15 +259,65 @@ def test_model_api_surface():
     assert last.shape == (2, tcfg.padded_vocab) and torch.isfinite(last).all()
     with pytest.raises(ValueError, match="generator"):
         build_model(tcfg, device="meta").init(torch.Generator())
-    for name in ("olmoe-1b-7b", "whisper-base", "internvl2-76b"):  # ported: they build
+    for name in ("olmoe-1b-7b", "whisper-base", "internvl2-76b", "xlstm-1.3b"):  # ported
         other = build_model(tconfigs.get_config(name).reduced(), device="cpu")
         assert other.cfg.family == tconfigs.get_config(name).family
-        assert (other.decode_chunk is None) == (other.cfg.family == "encdec")
-    fam = tconfigs.get_config("xlstm-1.3b").family
-    with pytest.raises(NotImplementedError, match=fam):
-        build_model(tconfigs.get_config("xlstm-1.3b"), device="cpu")
+        assert (other.decode_chunk is None) == (other.cfg.family in ("encdec", "ssm"))
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(tcfg.replace(family="rnn"), device="cpu")
     with pytest.raises((TypeError, AttributeError)):  # a real block now, not a stub
         tmlp.moe_block(None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# the xLSTM builds; the serving engine and the cluster refuse it, as the
+# reference's do (tests/test_cluster.py's typed family refusal)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def xlstm_model():
+    cfg = tconfigs.get_config("xlstm-1.3b").reduced()
+    model = build_model(cfg, device="cpu")
+    return cfg, model, model.init(torch.Generator().manual_seed(0))
+
+
+def test_xlstm_builds_with_the_references_surface(xlstm_model):
+    cfg, model, params = xlstm_model
+    assert model.cfg.family == "ssm" and model.device.type == "cpu"
+    assert None is model.decode_chunk is model.init_paged_cache is model.decode_step_paged
+    jcfg = jconfigs.get_config("xlstm-1.3b").reduced()
+    want = jax.eval_shape(lambda: jbuild(jcfg).init(jax.random.key(0)))
+    assert [tuple(t.shape) for t in jax.tree.leaves(params)] == [
+        tuple(t.shape) for t in jax.tree.leaves(want)]
+    toks = torch.from_numpy(_tokens(cfg, (2, 6), 3))
+    last, cache = model.prefill(params, {"tokens": toks}, 16)
+    assert last.shape == (2, cfg.padded_vocab) and torch.isfinite(last).all()
+    assert {k: tuple(v.shape) for k, v in cache.items()} == {
+        k: tuple(v.shape) for k, v in model.cache_specs(2, 16).items()}
+
+
+def test_engine_refuses_xlstm_with_the_references_error(xlstm_model):
+    from repro import serve as jserve
+    from repro_torch import serve as tserve
+
+    cfg, model, params = xlstm_model
+    for extra in ({}, {"page_size": 4}):
+        with pytest.raises(tserve.UnsupportedFamilyError) as exc:
+            tserve.ServeEngine(model, params, tserve.EngineConfig(n_slots=2, max_len=16, **extra))
+        assert exc.value.family == cfg.family == "ssm"
+        assert exc.value.missing == "decode_chunk"
+        assert isinstance(exc.value, NotImplementedError)
+        assert str(exc.value) == str(jserve.UnsupportedFamilyError("ssm"))
+
+
+def test_cluster_refuses_xlstm_at_submit(xlstm_model):
+    from repro_torch import serve as tserve
+
+    _, model, params = xlstm_model
+    cluster = tserve.ClusterRouter(model, params, tserve.ClusterConfig(
+        engine=tserve.EngineConfig(n_slots=2, max_len=16), n_replicas=2))
+    # construction is lazy: no error until the first submit
+    with pytest.raises(tserve.UnsupportedFamilyError, match="decode_chunk"):
+        cluster.submit([1, 2, 3], 4)
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +353,6 @@ def test_moe_engine_streams_match_reference_with_drops(page_size, monkeypatch):
     prefilled in the same 32-token chunks by both engines, so the same
     assignments drop, and every stream equals the reference's."""
     from repro import serve as jserve
-    from repro.models import build_model as jbuild
     from repro_torch import serve as tserve
 
     jcfg = jconfigs.get_config("olmoe-1b-7b").reduced()

@@ -174,8 +174,32 @@ Phases, in order; any failure exits non-zero before the final line:
    in a subprocess, which must exit 0; (e) the flash kernel under autograd,
    alone and in a gemma-2b reduced ``value_and_grad`` with
    ``attn_impl="pallas"``, must raise before it launches;
-13. a ``kernels`` line, one JSON line of per-kernel numbers, and the final
-   ``{"ok": true, "device": ...}`` line.
+13. the distribution layer (``repro_torch.dist``), with phase 12's params
+   freed, two ranks sharing the card over gloo (every collective staged
+   through host memory: these times are not NVLink figures and say nothing
+   of multi-GPU scaling), started by ``dist.run_ranks``; a failed or hung
+   rank fails the run: (a) gemma-2b at full width and depth tensor-parallel
+   on a 2-rank ``model`` mesh: the 4 x 1000 prefill under the guard's shadow
+   mode, each rank's 18 flash launches on its 4 query heads and the 1 KV
+   head, the gathered last logits within 0.1 of their max of the one-rank
+   flash prefill's; phase 10's requests through a dense and a paged engine
+   on the mesh, both ranks' tokens equal, and equal to phase 10's dense
+   engine but where the one-rank model's top-2 margin lies within the
+   distance between its logits row and the ranks' at that position (each
+   flip printed); tokens/s and each rank's peak memory; (b) ZeRO stages 2
+   and 3 on (data=2, model=1), gemma-2b at full width in float32 compute,
+   its depth cut by a printed reckoning of the bytes two ranks hold, one
+   step of 2 x 512 tokens each against the one-process step on the same
+   batch: the loss and grad norm within 1e-3, the params within
+   ``tolerance(float32, "nvidia-h100-sxm")`` but for 1 % of a leaf's
+   elements, every element within 2 lr; (c) ``gpipe_apply`` over 2 stages
+   against the sequential stages and ``psum_compressed`` against the exact
+   sum, on CUDA tensors; (d) a checkpoint saved under data 2 from its
+   shards, restored by ``ElasticController`` on one rank, its tree equal;
+   (e) a world of one rank over NCCL runs the collectives;
+14. a ``kernels`` line, one JSON line of per-kernel numbers (the flash
+   launches count phase 13's ranks'), and the final ``{"ok": true,
+   "device": ...}`` line.
 
 Rates used for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s HBM,
 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16 and fp16 dense on
@@ -253,12 +277,13 @@ MATMUL_F32_ROW_RTOL = {"bfloat16": 1e-5, "float16": 1e-5, "float8_e4m3fn": 5e-4}
 MATMUL_SHAPES = ((2048, 2048, 2048), (4096, 4096, 4096), (300, 200, 100))
 # each LM's causal prefill in the model layout, as its phase hands it to flash:
 # B, S, H, Hkv, hd (internvl2-76b's S is its 256 frontend rows and 256 of text)
-FLASH_MODEL_SHAPES = {"gemma-2b": (4, 1000, 8, 1, 256), "zamba2-7b": (4, 1000, 32, 32, 112),
+FLASH_MODEL_SHAPES = {"gemma-2b": (4, 1000, 8, 1, 256), "gemma-2b tp 2": (4, 1000, 4, 1, 256),
+                      "zamba2-7b": (4, 1000, 32, 32, 112),
                       "olmoe-1b-7b": (4, 1000, 16, 16, 128),
                       "internvl2-76b": (2, 512, 64, 8, 128)}
 # the flash row's keys of its other shapes, beside gemma-2b's
 FLASH_SHAPE_SUFFIXES = ("_hd112", "_hd512", "_olmoe", "_internvl2", "_whisper_enc",
-                        "_whisper_cross")
+                        "_whisper_cross", "_tp2")
 MEMBW_SHAPE = (65536, 512)  # 128 MiB of fp32: the probes' largest footprint
 # phase 4c: the paper's other suites, the kernels each registered variant must
 # launch (exactly these; the [torch] variants and the rest launch none)
@@ -295,6 +320,11 @@ TRAIN_CPU_STEPS = 3  # (b): reduced float32, the card against the CPU
 # 0.05 (1 % of the loss) catches a resume from the wrong step or a lost state
 EXAMPLE_RESUME_ATOL = 0.05
 TRAIN_LAUNCH_ARGV = ["--arch", "gemma-2b", "--steps", "2", "--batch", "2", "--seq", "512"]
+# phase 13: the distribution layer, two ranks sharing the card over gloo
+DIST_TIMEOUT = 900  # seconds a run of ranks may take before it fails the phase
+ZERO_BATCH, ZERO_SEQ = 2, 512  # (b)'s global batch: one 512-token sequence a rank
+ZERO_FREE_SHARE = 0.85  # of the card's free memory (b)'s two ranks may plan to fill
+CARD_BYTES = 80e9  # the H100's memory, for (b)'s reckoning where no card is visible
 LAUNCH_ARGV = ["--arch", "gemma-2b", "--requests", "8", "--prompt-len", "64", "--max-new", "16",
                "--slots", "4", "--max-len", "256", "--prefill-chunk", "64", "--replicas", "2",
                "--health", "--chaos", "--chaos-seed", "7", "--page-size", "16",
@@ -724,7 +754,8 @@ def flash_agreement(name, got, want32, tol) -> dict:
 def flash_checks(torch, dev, gen) -> dict:
     """flash_attention at the LMs' shapes (FLASH_MODEL_SHAPES), bf16,
     causal, in the model layout the LMs hand it: gemma-2b's q (4, 1000, 8,
-    256) over one KV head (native GQA), zamba2-7b's q (4, 1000, 32, 112) at
+    256) over one KV head (native GQA) and one tp 2 rank's half of its heads,
+    zamba2-7b's q (4, 1000, 32, 112) at
     its native head width, and the hd-128 instance at olmoe-1b-7b's q (4,
     1000, 16, 128) and internvl2-76b's q (2, 512, 64, 128) over 8 KV heads;
     each against its plain version and timed beside it and SDPA.
@@ -843,6 +874,9 @@ def flash_checks(torch, dev, gen) -> dict:
     internvl2 = model_layout("internvl2-76b")
     print(f"check flash_attention at internvl2-76b's q (2, 512, 64, 128) over 8 KV heads bf16: "
           f"{internvl2}", flush=True)
+    tp2 = model_layout("gemma-2b tp 2")
+    print(f"check flash_attention at a gemma-2b tp 2 rank's q (4, 1000, 4, 256) bf16: {tp2}",
+          flush=True)
     row = {
         "shape": "q (4, 1000, 8, 256) bf16 causal, k/v (4, 1000, 1, 256): model layout, "
                  "native GQA",
@@ -861,6 +895,7 @@ def flash_checks(torch, dev, gen) -> dict:
         **{f"{k}_internvl2": v for k, v in internvl2.items()},
         **{f"{k}_whisper_enc": v for k, v in enc.items()},
         **{f"{k}_whisper_cross": v for k, v in cross.items()},
+        **{f"{k}_tp2": v for k, v in tp2.items()},
     }
     print(f"check flash_attention at gemma-2b's q (4, 1000, 8, 256) bf16: "
           f"{ {k: v for k, v in row.items() if not k.endswith(FLASH_SHAPE_SUFFIXES)} }",
@@ -2959,6 +2994,543 @@ def train_path(torch, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the distribution layer, two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+def dist_conf(dev) -> dict:
+    """What phase 13's ranks need from this script's constants, passed to
+    them as arguments (a spawned rank imports the script afresh)."""
+    return {"device": dev.type, "arch": "gemma-2b", "reduced": False, "hw": CARD_HW,
+            "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN, "chunk": SERVE_CHUNK,
+            "page": SERVE_PAGE, "new": SERVE_NEW, "prefix_len": SERVE_PREFIX,
+            "lr": TRAIN_LR}
+
+
+def use_conf(conf) -> None:
+    """Set this process's serving constants to the parent's (a spawned rank
+    imports the script afresh; the CPU rehearsal shrinks them)."""
+    global SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK
+    SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK = conf["slots"], conf["max_len"], conf["chunk"]
+
+
+def dist_cfg(conf, **kw):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(conf["arch"])
+    return (cfg.reduced() if conf["reduced"] else cfg).replace(**kw)
+
+
+def rank_mesh(shape, axes, conf):
+    """This rank's bound mesh on its device (rank r on GPU r mod the count)."""
+    import torch.distributed as tdist
+
+    from repro_torch.dist import rank_device
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(shape, axes).bind(rank_device(conf["device"], tdist.get_rank()))
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.models.common import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def tp_rank(rank, conf, tokens, prompts, prefix, want_tokens) -> dict:
+    """Phase 13 (a) on one rank of a 2-rank ``model`` mesh: gemma-2b's params
+    made from the seed and sharded by ``param_specs``; the 4 x 1000 prefill
+    under the guard's shadow mode (each flash call on this rank's 4 query
+    heads and 1 KV head); then phase 10's requests through a dense and a
+    paged engine on the mesh.  Where a stream differs from ``want_tokens``
+    (the one-rank engine's), this rank's logits row at the first differing
+    position, fed as the engine fed it, comes back for the near-tie rule."""
+    import torch
+
+    from repro_torch.core.timing import percentile
+    from repro_torch.dist import activation_sharding, param_specs, shard_tree
+    from repro_torch.kernels import _util, guard
+    from repro_torch.kernels.api import kernel_policy
+    from repro_torch.models import build_model
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    use_conf(conf)
+    mesh = rank_mesh((2,), ("model",), conf)
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = dist_cfg(conf, attn_impl="pallas")
+    model = build_model(cfg, device=dev)
+
+    def global_params():
+        return model.init(torch.Generator(device=dev).manual_seed(0))
+
+    out = {}
+    params = global_params()
+    specs = param_specs(params, cfg, mesh)
+    local = shard_tree(params, specs)
+    out["param_bytes_tp1"], out["param_bytes_local"] = tree_bytes(params), tree_bytes(local)
+    out["local_shapes"] = {"wq": list(local["layers"]["attn"]["wq"].shape),
+                           "wk": list(local["layers"]["attn"]["wk"].shape),
+                           "embed": list(local["embed"].shape)}
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    with torch.inference_mode(), activation_sharding(mesh):
+        model.prefill(local, {"tokens": batch["tokens"][:1, :64]})  # warm-up, unguarded
+    with guard.isolated(guard.GuardConfig(hw=conf["hw"])), torch.inference_mode(), \
+            kernel_policy(guard="shadow"), activation_sharding(mesh):
+        _util.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        last, cache = model.prefill(local, batch)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = _util.launch_counts()
+        out["guard"] = guard.metrics().summary()
+        out["shadowed"] = dict(guard.state()._calls)
+        out["quarantined"] = list(guard.quarantined_ops())
+    out["prefill_last"] = last.float().cpu()
+    out["cache_kv_heads"] = int(cache["k"].shape[3])
+    del local, cache
+
+    base = dict(n_slots=conf["slots"], max_len=conf["max_len"], prefill_chunk=conf["chunk"],
+                guard="sample", degrade=False, mesh=mesh)
+    engines = {}
+    for name, extra in (("dense", {}), ("paged", {"page_size": conf["page"]})):
+        params = global_params()
+        eng = ServeEngine(model, params, EngineConfig(**base, **extra))
+        del params
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        with torch.inference_mode():
+            if name == "paged":
+                eng.register_prefix(prefix)
+            eng.submit(prompts[0][:conf["prefix_len"] + 8], 4)  # warm-up
+            eng.run()
+            eng.reset_metrics()
+            sync()
+            t0 = time.perf_counter()
+            sessions = [eng.submit(p, conf["new"]) for p in prompts]
+            eng.run()
+            sync()
+            wall = time.perf_counter() - t0
+        m, s = eng.metrics, eng.summary()
+        res = {"tokens": [x.out for x in sessions], "finished": [x.finish_reason for x in sessions],
+               "wall_s": wall, "throughput_tok_s": s["throughput_tok_s"],
+               "ttft_ms_p50": s["ttft_ms_p50"], "tok_latency_ms_p50": s["tok_latency_ms_p50"],
+               "tok_latency_ms_p99": percentile(m.token_latency_s, 99) * 1e3,
+               "guard_checks": s["guard_checks"], "drift_events": s["drift_events"],
+               "degradations": s["degradations"], "op_degradations": s["op_degradations"],
+               "prefix_tokens_reused": s["prefix_tokens_reused"],
+               "engine_param_bytes": tree_bytes(eng.params),
+               "max_memory_allocated": (torch.cuda.max_memory_allocated(dev) if on_card
+                                        else None)}
+        res["rows"] = {}
+        for i, (got, want) in enumerate(zip(res["tokens"], want_tokens)):
+            if got != want:  # this rank's row where the stream first differs
+                j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+                         min(len(got), len(want)))
+                with torch.inference_mode(), activation_sharding(mesh):
+                    row = lane_logits(torch, model, eng.params, prompts[i], want[:j], dev)
+                res["rows"][i] = (j, row.cpu())
+        engines[name] = res
+        del eng
+        if on_card:
+            torch.cuda.empty_cache()
+    out["engines"] = engines
+    return out
+
+
+def tp_flip_rule(torch, dev, conf, prompts, want, got, rows) -> dict:
+    """The near-tie rule of phases 10-11 for the tensor-parallel streams:
+    where a stream first differs from the one-rank engine's, the one-rank
+    model's top-2 margin at that position must lie within the distance
+    between its logits row and the tp ranks' (fed the same tokens the same
+    way), and the tp token must be one of the one-rank row's top two.
+    Anything else fails; each flip is returned."""
+    from repro_torch.models import build_model
+
+    if not rows:
+        return {}
+    cfg = dist_cfg(conf, attn_impl="pallas")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    flips = {}
+    with torch.inference_mode():
+        for i, (j, tp_row) in rows.items():
+            one = lane_logits(torch, model, params, prompts[i], want[i][:j], dev).cpu()
+            top = torch.topk(one, 2)
+            flips[i] = {"position": j, "want": want[i][j] if j < len(want[i]) else None,
+                        "got": got[i][j] if j < len(got[i]) else None,
+                        "margin_tp1": float(top.values[0] - top.values[1]),
+                        "top2_tp1": top.indices.tolist(),
+                        "tp_vs_tp1_max_abs": float((one - tp_row.float()).abs().max())}
+    del params, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    bad = {i: f for i, f in flips.items()
+           if f["got"] not in f["top2_tp1"] or f["margin_tp1"] > f["tp_vs_tp1_max_abs"]}
+    if bad:
+        raise AssertionError(f"dist tp: streams differ past the near-tie rule: {bad}")
+    return flips
+
+
+def zero_layers(torch, conf, free_bytes) -> tuple:
+    """The depth (a)'s ZeRO run can hold, and its reckoning: the fp32 params
+    P(L) of L layers; each rank's peak about 3.5 P (params or their gathered
+    copy, full grads before the reduce-scatter, their half, half of each
+    moment, and at stage 3 the stored half too), two ranks on one card, plus
+    per rank the float32 logits of one 512-token sequence and its grads
+    (3 x 512 x 256,000 x 4 bytes) and twice the largest leaf in flight."""
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import state_shapes
+    from repro_torch.models import build_model
+
+    def param_bytes(layers):
+        cfg = dist_cfg(conf, n_layers=layers)
+        shapes = state_shapes(build_model(cfg, device="cpu").init, AdamW()).params
+        return tree_bytes(shapes), max(t.numel() * t.element_size()
+                                       for t in (shapes["embed"],
+                                                 shapes["layers"]["mlp"]["wi_gate"]))
+
+    full = dist_cfg(conf).n_layers
+    p1, _ = param_bytes(1)
+    p2, _ = param_bytes(2)
+    per_layer, embed_and_norms = p2 - p1, 2 * p1 - p2
+    act = 3 * ZERO_SEQ * dist_cfg(conf).padded_vocab * 4
+    budget = ZERO_FREE_SHARE * free_bytes
+    layers = full
+    while layers > 1:
+        total, leaf = param_bytes(layers)
+        if 2 * (3.5 * total + act + 2 * leaf) <= budget:
+            break
+        layers -= 1
+    total, leaf = param_bytes(layers)
+    reckoning = {"free_gb": free_bytes / 1e9, "budget_gb": budget / 1e9,
+                 "per_layer_gb": per_layer / 1e9, "embed_and_norms_gb": embed_and_norms / 1e9,
+                 "params_gb": total / 1e9,
+                 "per_rank_peak_gb_est": (3.5 * total + act + 2 * leaf) / 1e9,
+                 "layers": layers, "of": full}
+    return layers, reckoning
+
+
+def zero_rank(rank, conf, layers, batch, stages) -> dict:
+    """Phase 13 (b) on one rank of (data=2, model=1): gemma-2b at full width
+    and ``layers`` layers, float32 compute, one step of each ZeRO stage from
+    the seeded params over the global batch; rank 0 then runs the one-process
+    step on the same batch and holds each stage's gathered params against it."""
+    import torch
+
+    from repro_torch.dist import gather_tree, shard_tree, zero_layouts
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamW, AdamWState
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train.step import TrainState, make_train_step
+
+    mesh = rank_mesh((2, 1), ("data", "model"), conf)
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = dist_cfg(conf, n_layers=layers, dtype="float32")
+    model = build_model(cfg, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    lr = conf["lr"]
+    out, kept = {}, {}
+    for stage in stages:
+        c = cfg.replace(zero_stage=stage)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        lay = zero_layouts(params, c, mesh)
+        opt = AdamW()
+        state = TrainState(shard_tree(params, lay.params),
+                           opt.init(shard_tree(params, lay.moments)))
+        del params
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        step = make_train_step(model.loss_fn, opt, constant(lr), grad_shardings=lay.grads,
+                               state_shardings=TrainState(lay.params, AdamWState(
+                                   None, lay.moments, lay.moments)))
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        step_s = time.perf_counter() - t0
+        out[stage] = {"loss": loss, "grad_norm": float(m["grad_norm"]), "step_s": step_s,
+                      "state_bytes_local": tree_bytes(state),
+                      "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                               if on_card else None)}
+        full = gather_tree(state.params, lay.params)
+        if rank == 0:
+            kept[stage] = [t.cpu() for t in tree_leaves(full)]
+        del state, full, step
+        if on_card:
+            torch.cuda.empty_cache()
+    if rank != 0:
+        return out
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = AdamW()
+    step = make_train_step(model.loss_fn, opt, constant(lr))
+    sync()
+    t0 = time.perf_counter()
+    state, m = step(TrainState(params, opt.init(params)), batch)
+    out["one_process"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                          "step_s": time.perf_counter() - t0}
+    want = tree_leaves(state.params)
+    for stage in stages:
+        out[stage]["params"] = zero_param_rule(torch, kept[stage], want, lr, conf["hw"])
+    return out
+
+
+def zero_param_rule(torch, got, want, lr, hw) -> dict:
+    """Each leaf within ``tolerance(float32, hw)`` but for at most 1 % of
+    its elements (at least one), and every element within 2 lr: one step of
+    AdamW moves an element by lr times g / (|g| + eps), about lr times g's
+    sign, so an element whose grad sits at the sums' rounding from zero may
+    take the other sign in one run (at full width some do).  Returns the
+    counts; raises past the rule."""
+    from repro_torch.kernels import guard
+
+    tol = guard.tolerance(torch.float32, hw)
+    outside, worst, n = 0, 0.0, 0
+    for a, b in zip(got, want):
+        err = (a.to(b.device).float() - b.float()).abs()
+        k = int((err > tol.atol + tol.rtol * b.float().abs()).sum())
+        outside, worst, n = outside + k, max(worst, float(err.max())), n + b.numel()
+        if k > max(1, b.numel() // 100) or float(err.max()) > 2 * lr + tol.atol:
+            raise AssertionError(f"dist zero: a leaf of {b.numel()} has {k} elements outside "
+                                 f"256 ulps, the worst {float(err.max())} (lr {lr})")
+    return {"elements": n, "elements_outside_256_ulps": outside, "max_abs_err": worst}
+
+
+def collectives_rank(rank, conf) -> dict:
+    """Phase 13 (c) on one rank of a 2-rank ``pod`` axis: ``gpipe_apply``
+    over 2 stages against the sequential stages (output and gradients), and
+    ``psum_compressed`` against the exact sum, on the rank's device."""
+    import torch
+
+    from repro_torch.dist import NamedSharding, P, gather_tree, gpipe_apply, psum_compressed
+    from repro_torch.dist import shard_tree
+
+    mesh = rank_mesh((2,), ("pod",), conf)
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    d, n_micro, mb = 1024, 8, 64
+    w = torch.randn((2, d, d), generator=gen, device=dev) * d ** -0.5
+    x = torch.randn((n_micro, mb, d), generator=gen, device=dev)
+    spec = {"w": NamedSharding(mesh, P("pod"))}
+    local = shard_tree({"w": w}, spec)
+    local["w"].requires_grad_(True)
+    y = gpipe_apply(lambda p, h: torch.tanh(h @ p["w"]), local, x, mesh, "pod")
+    (y ** 2).sum().backward()
+    grad = gather_tree({"w": local["w"].grad}, spec)["w"]
+    ws = w.clone().requires_grad_(True)
+    seq = x
+    for s in range(2):
+        seq = torch.tanh(seq @ ws[s])
+    (seq ** 2).sum().backward()
+    v = torch.randn((1 << 20,), generator=torch.Generator(device=dev).manual_seed(6 + rank),
+                    device=dev)
+    exact = psum_compressed(v, "pod", "none", mesh=mesh)
+    q = psum_compressed(v, "pod", "int8", mesh=mesh)
+    return {"gpipe_y_max_abs": float((y.detach() - seq.detach()).abs().max()),
+            "gpipe_grad_rel": float((grad - ws.grad).abs().max() / ws.grad.abs().max()),
+            "psum_int8_rel": float((q - exact).abs().max() / exact.abs().max()),
+            "psum_exact_is_sum": bool(torch.equal(exact, gather_tree(
+                {"v": v[None]}, {"v": NamedSharding(mesh, P("pod"))})["v"].sum(0)))}
+
+
+def ckpt_rank(rank, conf, directory) -> dict:
+    """Phase 13 (d), the save: gemma-2b reduced's params sharded at ZeRO
+    stage 3 on (data=2, model=1), saved from the shards."""
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.dist import shard_tree, zero_layouts
+    from repro_torch.models import build_model
+
+    mesh = rank_mesh((2, 1), ("data", "model"), conf)
+    cfg = dist_cfg({**conf, "reduced": True})
+    params = build_model(cfg, device=mesh.device).init(
+        torch.Generator(device=mesh.device).manual_seed(0))
+    lay = zero_layouts(params, cfg.replace(zero_stage=3), mesh)
+    CheckpointManager(directory).save(7, shard_tree(params, lay.params), shardings=lay.params)
+    return {"saved": 7}
+
+
+def elastic_rank(rank, conf, directory) -> dict:
+    """Phase 13 (d), the resume: ``ElasticController`` on one rank restores
+    (d)'s checkpoint onto the mesh it plans; its tree must equal the params
+    it was saved from."""
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.dist import NamedSharding, P
+    from repro_torch.ft import ElasticController
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    ctl = ElasticController(model_parallel=1, ckpt=CheckpointManager(directory), devices_total=2)
+    planned = ctl.plan_mesh(1)
+    mesh = rank_mesh(tuple(planned.shape.values()), planned.axis_names, conf)
+    cfg = dist_cfg({**conf, "reduced": True})
+    want = build_model(cfg, device=mesh.device).init(
+        torch.Generator(device=mesh.device).manual_seed(0))
+    like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), want)
+    step, got = ctl.resume(like, tree_map(lambda _: NamedSharding(mesh, P()), want))
+    return {"mesh": dict(mesh.shape), "step": step,
+            "equal": all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))}
+
+
+def nccl_rank(rank, conf) -> dict:
+    """Phase 13 (e): a world of one rank over NCCL runs the layer's
+    collectives on the card."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.dist import collectives, psum_compressed
+
+    mesh = rank_mesh((1,), ("data",), conf)
+    x = torch.arange(12, dtype=torch.float32, device=mesh.device).reshape(3, 4)
+    ok = {"all_reduce": torch.equal(collectives.all_reduce(x, mesh, "data"), x),
+          "all_gather": torch.equal(collectives.all_gather(x.bfloat16(), mesh, "data", 1),
+                                    x.bfloat16()),
+          "reduce_scatter": torch.equal(collectives.reduce_scatter(x, mesh, "data", 0), x),
+          "psum_none": torch.equal(psum_compressed(x, "data", "none", mesh=mesh), x),
+          "psum_int8_rel": float((psum_compressed(x, "data", "int8", mesh=mesh) - x).abs().max()
+                                 / x.abs().max())}
+    torch.cuda.synchronize()
+    return {"backend": tdist.get_backend(), **ok}
+
+
+def dist_path(torch, dev, tp1) -> dict:
+    """Phase 13: the distribution layer (see the module docstring), two ranks
+    on the one card over gloo (its collectives staged through host memory)
+    and one rank over NCCL.  ``tp1``: the one-rank prefill's last logits and
+    the one-rank engine's tokens.  Returns the ranks' launch counts."""
+    from repro_torch.dist import run_ranks
+
+    phase_start = time.perf_counter()
+    conf = dist_conf(dev)
+    cfg = dist_cfg(conf)
+    prompts, prefix = serve_prompts(cfg)
+    counts = {}
+
+    # (a) tensor-parallel gemma-2b, tp 2
+    ranks = run_ranks(tp_rank, 2, conf, tp1["prefill_tokens"], prompts, prefix, tp1["tokens"],
+                      backend="gloo", device=dev.type, timeout=DIST_TIMEOUT)
+    for r in ranks:
+        add_counts(counts, r["prefill_launches"])
+    tp = {"prefill_s": [r["prefill_s"] for r in ranks],
+          "launches": [r["prefill_launches"] for r in ranks],
+          "shadowed": [r["shadowed"] for r in ranks],
+          "guard": [r["guard"] for r in ranks],
+          "local_shapes": ranks[0]["local_shapes"], "cache_kv_heads": ranks[0]["cache_kv_heads"],
+          "param_gb_tp1": ranks[0]["param_bytes_tp1"] / 1e9,
+          "param_gb_local": [r["param_bytes_local"] / 1e9 for r in ranks],
+          "rel_err_last_logits": [rel_max(r["prefill_last"][:, :cfg.vocab_size],
+                                          tp1["prefill_last"][:, :cfg.vocab_size])
+                                  for r in ranks]}
+    print(f"dist tp 2 prefill {LM_BATCH} x {LM_PROMPT} (two ranks on one card, gloo through "
+          "host memory): "
+          + json.dumps(tp), flush=True)
+    for r in ranks:
+        if r["prefill_launches"].get("flash_attention") != cfg.n_layers:
+            raise AssertionError(f"dist tp: a rank's prefill launched {r['prefill_launches']}")
+        g = r["guard"]
+        if (r["shadowed"].get("flash_attention") != cfg.n_layers or g["drift_events"]
+                or g["faults"] or g["degraded_calls"] or r["quarantined"]):
+            raise AssertionError(f"dist tp: the guard saw {g}, quarantined {r['quarantined']}")
+    if max(tp["rel_err_last_logits"]) > 0.1:
+        raise AssertionError(f"dist tp: the tp 2 prefill differs from tp 1: {tp}")
+    for name in ("dense", "paged"):
+        legs = [r["engines"][name] for r in ranks]
+        got = legs[0]["tokens"]
+        if any(leg["tokens"] != got for leg in legs):
+            raise AssertionError(f"dist tp {name}: the ranks sampled different tokens")
+        if any(f != "max_new_tokens" for leg in legs for f in leg["finished"]):
+            raise AssertionError(f"dist tp {name}: not every request finished")
+        if any(leg["drift_events"] or leg["degradations"] or leg["op_degradations"]
+               for leg in legs) or not legs[0]["guard_checks"]:
+            raise AssertionError(f"dist tp {name}: guard or degradation activity")
+        flips = tp_flip_rule(torch, dev, conf, prompts, tp1["tokens"], got, legs[0]["rows"])
+        summary = {k: v for k, v in legs[0].items() if k not in ("tokens", "finished", "rows")}
+        summary["max_memory_allocated_gb"] = [
+            None if leg["max_memory_allocated"] is None else leg["max_memory_allocated"] / 1e9
+            for leg in legs]
+        summary["identity"] = "identical" if not flips else "near-tie flips"
+        summary["flips"] = flips
+        print(f"dist tp 2 {name} engine (smoke reading, {len(prompts)} requests; gloo through "
+              f"host memory, not NVLink): " + json.dumps(summary), flush=True)
+
+    # (b) ZeRO data parallelism, data 2
+    free = torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else CARD_BYTES
+    layers, reckoning = zero_layers(torch, conf, free)
+    print("dist zero: depth cut by the reckoning " + json.dumps(reckoning), flush=True)
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    seq = rng.integers(0, cfg.vocab_size, (ZERO_BATCH, ZERO_SEQ + 1))
+    batch = {"tokens": seq[:, :-1].astype(np.int32), "targets": seq[:, 1:].astype(np.int32)}
+    z0, z1 = run_ranks(zero_rank, 2, conf, layers, batch, (2, 3), backend="gloo",
+                       device=dev.type, timeout=DIST_TIMEOUT)
+    one = z0["one_process"]
+    zero = {"layers": layers, "one_process": one}
+    for stage in (2, 3):
+        zero[f"stage{stage}"] = {**z0[stage], "rank1": {k: v for k, v in z1[stage].items()}}
+        for k in ("loss", "grad_norm"):
+            rel = abs(z0[stage][k] - one[k]) / abs(one[k])
+            zero[f"stage{stage}"][f"{k}_rel"] = rel
+            if rel > 1e-3:
+                raise AssertionError(f"dist zero stage {stage}: {k} {z0[stage][k]} against "
+                                     f"the one-process step's {one[k]}")
+    print("dist zero data 2 (float32 compute; gloo through host memory): " + json.dumps(zero),
+          flush=True)
+
+    # (c) GPipe and the compressed all-reduce on the card
+    coll = run_ranks(collectives_rank, 2, conf, backend="gloo", device=dev.type,
+                     timeout=DIST_TIMEOUT)
+    print("dist gpipe and psum_compressed: " + json.dumps(coll), flush=True)
+    for r in coll:
+        if (r["gpipe_y_max_abs"] > 1e-5 or r["gpipe_grad_rel"] > 1e-4
+                or r["psum_int8_rel"] > 0.02 or not r["psum_exact_is_sum"]):
+            raise AssertionError(f"dist: gpipe or psum_compressed is off: {r}")
+
+    # (d) a checkpoint saved under data 2, resumed on one rank
+    with tempfile.TemporaryDirectory() as tmp:
+        run_ranks(ckpt_rank, 2, conf, tmp, backend="gloo", device=dev.type, timeout=DIST_TIMEOUT)
+        (el,) = run_ranks(elastic_rank, 1, conf, tmp, backend="gloo", device=dev.type,
+                          timeout=DIST_TIMEOUT)
+    print("dist elastic resume on one rank: " + json.dumps(el), flush=True)
+    if el["step"] != 7 or not el["equal"]:
+        raise AssertionError(f"dist: the resharded restore is off: {el}")
+
+    # (e) one rank over NCCL, the backend for a GPU per rank
+    if dev.type == "cuda":
+        (nc,) = run_ranks(nccl_rank, 1, conf, backend="nccl", device="cuda",
+                          timeout=DIST_TIMEOUT)
+        print("dist nccl world of one: " + json.dumps(nc), flush=True)
+        if nc["backend"] != "nccl" or not all(nc[k] for k in (
+                "all_reduce", "all_gather", "reduce_scatter", "psum_none")) \
+                or nc["psum_int8_rel"] > 0.01:
+            raise AssertionError(f"dist: the NCCL collectives are off: {nc}")
+    print(f"dist: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
+    return counts
+
+
+def tp1_reference(torch, dev, cfg, model, params, tokens) -> dict:
+    """Phase 13's one-rank reference, taken while phase 10's params are
+    alive: the 4 x 1000 flash prefill's last logits, on the host."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    with torch.inference_mode():
+        last, _ = model.prefill(params, {"tokens": prompt})
+    return {"prefill_tokens": prompt.cpu(), "prefill_last": last.float().cpu(),
+            "tokens": tokens}
+
+
 def roofline_share(name, fn, args, n_params, tokens, measured_s) -> dict:
     """Count ``fn(*args)`` once, untimed (``perfmodel.extract_costs``: ATen
     FLOPs and bytes, so on the plain path, whose ops it sees), roofline it
@@ -3033,9 +3605,12 @@ def main() -> int:
     single["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     add_counts(counts, serving_counts)
     add_counts(counts, cluster_path(torch, dev, cfg, model, params, single))
+    tp1 = tp1_reference(torch, dev, cfg, model, params, single["tokens"])
     del params, model, single
     torch.cuda.empty_cache()  # the training phase needs the card's memory
     add_counts(counts, train_path(torch, dev))
+    torch.cuda.empty_cache()  # the ranks of phase 13 share the card
+    add_counts(counts, dist_path(torch, dev, tp1))
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print("kernels: " + " ".join(KERNELS))

@@ -11,8 +11,8 @@ to the point's device count — the scale-out curve.
 
 Points whose ``tp`` exceeds the visible device count are skipped, as the
 reference skips them; a ``tp > 1`` point that fits raises, since
-tensor-parallel replicas wait for the port's distribution layer (ROADMAP.md
-§1 item 11).  A ``failover`` contrast point kills one of two replicas
+tensor-parallel replicas need a process group per replica under one router
+(ROADMAP.md §1 item 11b).  A ``failover`` contrast point kills one of two replicas
 mid-run and serves the drained sessions to completion on the survivor — its
 ``requeued_sessions`` metric is the resilience headline.  Replicas on one
 card step one after another, so on one card the ``replicas`` axis measures

@@ -1,6 +1,6 @@
-"""Checkpointing: atomic numpy checkpoints.  Port of ``repro.ckpt``; its
-``load_resharded`` (``reshard.py``) places a checkpoint onto a mesh and waits
-for the port's distribution layer (ROADMAP.md §1 item 11)."""
+"""Checkpointing: atomic numpy checkpoints and their resharded restore.
+Port of ``repro.ckpt``."""
 from .manager import CheckpointManager
+from .reshard import load_resharded
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "load_resharded"]

@@ -18,6 +18,13 @@ as its number, joined by ``/``; dict keys are visited in sorted order.  A
 ``TrainState``'s keys are therefore the reference's: ``.params/embed``,
 ``.opt/.step``, ``.opt/.mu/embed`` ...  numpy has no bfloat16, so a bfloat16
 leaf is stored as float32 (exact) and cast back on restore.
+
+A sharded tree (each rank holding its shards, ``dist.shard_tree``) is saved
+as global arrays, as the reference's host-gathered arrays: ``save(...,
+shardings=)`` gathers it on every rank, rank 0 writes and the others wait
+at a barrier.  ``restore(..., shardings=)`` reads the global arrays and
+places each rank's shard by the new shardings, on the mesh's device, so a
+checkpoint saved on one mesh resumes on another (``reshard.py``).
 """
 from __future__ import annotations
 
@@ -31,6 +38,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.dist.sharding import gather_tree, shard_tree
 
 
 def _is_namedtuple(x) -> bool:
@@ -82,7 +92,22 @@ class CheckpointManager:
         self.keep = keep
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree: Any, extra: Optional[dict] = None) -> Path:
+    def save(self, step: int, tree: Any, extra: Optional[dict] = None,
+             shardings: Any = None) -> Path:
+        """Write ``tree`` as step ``step``.  With ``shardings`` (the tree's
+        layouts), every rank of their mesh calls it with its shards."""
+        if shardings is not None:
+            tree = gather_tree(tree, shardings)
+            if dist.get_rank() != 0:
+                dist.barrier()
+                return self.dir / f"step_{step:09d}"
+            try:
+                return self._write(step, tree, extra)
+            finally:
+                dist.barrier()
+        return self._write(step, tree, extra)
+
+    def _write(self, step: int, tree: Any, extra: Optional[dict]) -> Path:
         arrays = {k: _host(v) for k, v in _flatten_with_paths(tree)}
         manifest = {
             "step": step,
@@ -127,12 +152,15 @@ class CheckpointManager:
         except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):  # torn, missing or garbage files
             return None
 
-    def restore(self, like: Any, step: Optional[int] = None) -> tuple[Optional[int], Any]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> tuple[Optional[int], Any]:
         """Restore into the structure of ``like``, a tree of tensors (or of
-        ``meta`` tensors).  Each leaf comes back in its ``like`` leaf's dtype,
-        on its device (the host for a ``meta`` leaf).  Newest-first; corrupt
-        checkpoints, and ones whose keys or shapes do not match ``like``, are
-        skipped.  Returns (step, tree) or (None, None)."""
+        ``meta`` tensors) of the global shapes.  Each leaf comes back in its
+        ``like`` leaf's dtype, on its device (the host for a ``meta`` leaf),
+        or with ``shardings`` as this rank's shard on the mesh's device.
+        Newest-first; corrupt checkpoints, and ones whose keys or shapes do
+        not match ``like``, are skipped.  Returns (step, tree) or (None,
+        None)."""
         candidates = self.steps()
         if step is not None:
             candidates = [s for s in candidates if s == step]
@@ -146,7 +174,10 @@ class CheckpointManager:
                            for key, leaf in leaves):
                     continue
                 vals = [self._place(z[key], leaf) for key, leaf in leaves]
-            return s, _unflatten(like, iter(vals))
+            tree = _unflatten(like, iter(vals))
+            if shardings is not None:
+                tree = shard_tree(tree, shardings)
+            return s, tree
         return None, None
 
     @staticmethod

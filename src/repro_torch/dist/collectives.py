@@ -1,0 +1,85 @@
+"""The collectives the distribution layer places where the reference's
+sharding rules imply them, over one axis of a bound
+:class:`~repro_torch.launch.mesh.Mesh`.
+
+Each returns a new tensor and leaves its input as it was.  Over NCCL they
+take the tensor where it lies.  Over gloo (ranks sharing one GPU, or on the
+CPU) a CUDA tensor is staged through host memory, the only path every gloo
+version takes, and data that only moves goes as its bytes (gloo versions
+differ in the dtypes they take: torch 2.11's gloo refuses int16).  Sums of
+16-bit floats are taken in fp32 (one rounding, as a single device's
+fp32-accumulated sum rounds once).
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def _gloo_host(x: torch.Tensor, group) -> bool:
+    return x.device.type != "cpu" and dist.get_backend(group) == "gloo"
+
+
+def _wire(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as a collective that moves it takes it: over gloo its bytes on
+    the host; :func:`_unwire` turns them back."""
+    if dist.get_backend(group) != "gloo":
+        return x.contiguous()
+    return x.to("cpu").contiguous().reshape(-1).view(torch.uint8)
+
+
+def _unwire(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return w.view(like.dtype).reshape(like.shape).to(like.device)
+
+
+def axis_size(mesh, axis: str) -> int:
+    return mesh.shape.get(axis, 1)
+
+
+def all_reduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Sum of ``x`` over the ``axis`` ranks, in ``x``'s dtype."""
+    group = mesh.group(axis)
+    acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
+    y = x.to("cpu" if _gloo_host(x, group) else x.device, acc, copy=True)
+    dist.all_reduce(y, group=group)
+    return y.to(x.device, x.dtype)
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The ``axis`` ranks' ``x`` concatenated along ``dim``, in rank order."""
+    group = mesh.group(axis)
+    bits = _wire(x, group)
+    parts = [torch.empty_like(bits) for _ in range(axis_size(mesh, axis))]
+    dist.all_gather(parts, bits, group=group)
+    return torch.cat([_unwire(p, x) for p in parts], dim=dim)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """This rank's ``dim`` slice (its ``axis`` index of ``n`` equal ones) of
+    the sum of ``x`` over the ``axis`` ranks.  NCCL reduce-scatters; over
+    gloo the staged host copy is all-reduced and sliced."""
+    group = mesh.group(axis)
+    n, i = axis_size(mesh, axis), mesh.index(axis)
+    if dist.get_backend(group) == "gloo":
+        full = all_reduce(x, mesh, axis)
+        return full.narrow(dim, i * (x.shape[dim] // n), x.shape[dim] // n).contiguous()
+    xm = x.movedim(dim, 0).contiguous()
+    out = torch.empty((xm.shape[0] // n, *xm.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, xm, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def shift(x: torch.Tensor, mesh, axis: str, step: int = 1) -> torch.Tensor:
+    """``x`` sent ``step`` places along the ``axis`` ring; returns what the
+    rank ``step`` places back sent (``jax.lax.ppermute`` over the ring)."""
+    ranks, i = mesh.axis_ranks(axis), mesh.index(axis)
+    n = len(ranks)
+    if n == 1:
+        return x.clone()
+    group = mesh.group(axis)
+    bits = _wire(x, group)
+    out = torch.empty_like(bits)
+    send = dist.isend(bits, ranks[(i + step) % n], group=group)
+    dist.recv(out, ranks[(i - step) % n], group=group)
+    send.wait()
+    return _unwire(out, x)

@@ -1,9 +1,7 @@
-"""Fault tolerance: heartbeats and throttle-aware straggler detection.
-
-Port of ``repro.ft``.  ``ElasticController`` (``repro/ft/elastic.py``) waits
-for the port's checkpointing and distribution layer (ROADMAP.md §1 item 11).
-"""
+"""Fault tolerance: heartbeats, throttle-aware straggler detection and the
+elastic restart policy.  Port of ``repro.ft``."""
+from .elastic import ElasticController
 from .heartbeat import HeartbeatMonitor
 from .straggler import StragglerDetector
 
-__all__ = ["HeartbeatMonitor", "StragglerDetector"]
+__all__ = ["ElasticController", "HeartbeatMonitor", "StragglerDetector"]

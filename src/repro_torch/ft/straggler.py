@@ -9,8 +9,8 @@ than using a naive fixed threshold that either misses early throttling or
 false-positives on normal jitter.
 
 Mitigations (policy layer): reroute data shards away from flagged workers /
-exclude + elastic-reshard (``ElasticController``, not ported yet: ROADMAP.md §1
-item 11) — both driven by these flags.
+exclude + elastic-reshard (``ElasticController``, ``ft/elastic.py``) — both
+driven by these flags.
 
 Port of ``repro.ft.straggler`` (host code, ported whole), over the port's
 copy of the throttle model; the defaults stay the reference's (the TPU v5e

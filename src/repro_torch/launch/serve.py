@@ -17,8 +17,8 @@ Paged KV + shared prefix:
 
 Cluster scale-out — data-parallel replicas behind one router (on one card
 they share the model's params and step one after another; tensor-parallel
-replicas, ``--tp > 1``, wait for the port's distribution layer and exit with
-its message):
+replicas, ``--tp > 1``, need a process group per replica under one router,
+ROADMAP.md §1 item 11b, and exit with its message):
 
     python -m repro_torch.launch.serve --arch gemma-2b --reduced \
         --requests 12 --replicas 2 --router least_loaded

@@ -20,8 +20,9 @@ Two KV-cache layouts coexist behind the same façade, as in the reference:
 The ssm, hybrid and encoder-decoder families keep ``decode_chunk`` and the
 paged fields ``None``, as in the reference, so the serving engine refuses
 them.
-The reference's cache sharding fields wait for the port's distribution
-layer (ROADMAP.md).
+The reference's ``cache_shardings``/``paged_cache_shardings`` fields are
+``dist.cache_shardings``/``paged_cache_shardings`` of the family's config,
+which the serving engine calls.
 """
 from __future__ import annotations
 

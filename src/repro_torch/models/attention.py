@@ -8,6 +8,13 @@ launches the hand-written CUDA kernel on CUDA tensors and takes its plain
 version on CPU tensors.  The KV cache comes in the reference's two layouts:
 dense per-lane regions and a global page pool read through block tables
 (the serving engine's paged KV).
+
+Under a tensor-parallel mesh (``dist.activation_sharding``) each rank holds
+its query heads of ``wq``/``wo`` and, where the ``model`` axis divides
+them, its KV heads; a replicated bias is sliced to the local heads
+(:func:`local_bias`), the query heads read their global KV heads
+(:func:`local_kv`), and the output projection, row-parallel, is summed over
+the ranks.
 """
 from __future__ import annotations
 
@@ -15,6 +22,8 @@ from functools import partial
 from typing import Optional
 
 import torch
+
+from repro_torch.dist import tensor_parallel as tp
 
 from .common import Params, apply_rope, dense_init
 
@@ -49,14 +58,34 @@ def qkv_proj(params: Params, x: torch.Tensor, cfg):
     k = torch.einsum("bsd,dkx->bskx", x, params["wk"].to(dt))
     v = torch.einsum("bsd,dkx->bskx", x, params["wv"].to(dt))
     if "bq" in params:
-        q = q + params["bq"].to(dt)
-        k = k + params["bk"].to(dt)
-        v = v + params["bv"].to(dt)
+        q = q + local_bias(params["bq"], cfg.n_heads).to(dt)
+        k = k + local_bias(params["bk"], cfg.n_kv_heads).to(dt)
+        v = v + local_bias(params["bv"], cfg.n_kv_heads).to(dt)
     return q, k, v
 
 
 def out_proj(params: Params, o: torch.Tensor, x_dtype) -> torch.Tensor:
+    """This rank's heads' share of the output projection (the whole of it
+    on one device); ``tp.reduce(.., n_heads)`` sums the shares."""
     return torch.einsum("bshx,hxd->bsd", o, params["wo"].to(x_dtype))
+
+
+def local_bias(b: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """A replicated per-head bias (..., n_heads, hd) cut to the heads this
+    rank's head-sharded weights produce."""
+    lo, hi = tp.local_range(n_heads)
+    return b[..., lo:hi, :]
+
+
+def local_kv(kv: torch.Tensor, cfg, dim: int = 2) -> torch.Tensor:
+    """The KV heads (on ``dim``) this rank's query heads read, in the order
+    the local grouping reads them (``tp.kv_heads_for_local_q``)."""
+    sel = tp.kv_heads_for_local_q(cfg.n_heads, cfg.n_kv_heads, kv.shape[dim])
+    if sel is None:
+        return kv
+    if isinstance(sel, slice):
+        return kv.narrow(dim, sel.start, sel.stop - sel.start).contiguous()
+    return kv.index_select(dim, sel.to(kv.device))
 
 
 # ---------------------------------------------------------------------------
@@ -177,15 +206,15 @@ def attention_block(
     k = torch.einsum("bsd,dkx->bskx", xkv, params["wk"].to(dt))
     v = torch.einsum("bsd,dkx->bskx", xkv, params["wv"].to(dt))
     if "bq" in params:
-        q = q + params["bq"].to(dt)
-        k = k + params["bk"].to(dt)
-        v = v + params["bv"].to(dt)
+        q = q + local_bias(params["bq"], cfg.n_heads).to(dt)
+        k = k + local_bias(params["bk"], cfg.n_kv_heads).to(dt)
+        v = v + local_bias(params["bv"], cfg.n_kv_heads).to(dt)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         kpos = positions if kv_positions is None else kv_positions
         k = apply_rope(k, kpos, cfg.rope_theta)
-    o = attention_impl(cfg)(q, k, v, causal=causal)
-    return out_proj(params, o, dt)
+    o = attention_impl(cfg)(q, local_kv(k, cfg), local_kv(v, cfg), causal=causal)
+    return tp.reduce(out_proj(params, o, dt), cfg.n_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -227,14 +256,13 @@ def decode_attention(
     """
     b, _ = x.shape
     dt = x.dtype
-    k_heads, hd = cfg.n_kv_heads, cfg.head_dim
     q = torch.einsum("bd,dhx->bhx", x, params["wq"].to(dt))
     k = torch.einsum("bd,dkx->bkx", x, params["wk"].to(dt))
     v = torch.einsum("bd,dkx->bkx", x, params["wv"].to(dt))
     if "bq" in params:
-        q = q + params["bq"].to(dt)
-        k = k + params["bk"].to(dt)
-        v = v + params["bv"].to(dt)
+        q = q + local_bias(params["bq"], cfg.n_heads).to(dt)
+        k = k + local_bias(params["bk"], cfg.n_kv_heads).to(dt)
+        v = v + local_bias(params["bv"], cfg.n_kv_heads).to(dt)
     if use_rope:
         q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
         k = apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
@@ -249,18 +277,20 @@ def decode_attention(
         cache_k = torch.where(write, k[:, None].to(cache_k.dtype), cache_k)
         cache_v = torch.where(write, v[:, None].to(cache_v.dtype), cache_v)
 
-    g = cfg.n_heads // k_heads
-    qg = q.reshape(b, k_heads, g, hd).float()
-    s = torch.einsum("bkgh,bskh->bkgs", qg, cache_k.float()) * hd ** -0.5
+    h, hd = q.shape[1], cfg.head_dim
+    ck, cv = local_kv(cache_k, cfg), local_kv(cache_v, cfg)
+    k_heads = ck.shape[2]
+    qg = q.reshape(b, k_heads, h // k_heads, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qg, ck.float()) * hd ** -0.5
     mask = slots[None] <= pos[:, None]  # (B, Smax)
     s = torch.where(mask[:, None, None], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    o = torch.einsum("bkgs,bskh->bkgh", p, cache_v.float())
+    o = torch.einsum("bkgs,bskh->bkgh", p, cv.float())
     o = o / torch.clamp_min(p.sum(dim=-1)[..., None], 1e-30)
-    o = o.reshape(b, cfg.n_heads, hd).to(dt)
+    o = o.reshape(b, h, hd).to(dt)
     y = torch.einsum("bhx,hxd->bd", o, params["wo"].to(dt))
-    return y, cache_k, cache_v
+    return tp.reduce(y, cfg.n_heads), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -395,9 +425,9 @@ def paged_decode_attention(
     k = torch.einsum("bd,dkx->bkx", x, params["wk"].to(dt))
     v = torch.einsum("bd,dkx->bkx", x, params["wv"].to(dt))
     if "bq" in params:
-        q = q + params["bq"].to(dt)
-        k = k + params["bk"].to(dt)
-        v = v + params["bv"].to(dt)
+        q = q + local_bias(params["bq"], cfg.n_heads).to(dt)
+        k = k + local_bias(params["bk"], cfg.n_kv_heads).to(dt)
+        v = v + local_bias(params["bv"], cfg.n_kv_heads).to(dt)
     q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
     k = apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
 
@@ -405,12 +435,12 @@ def paged_decode_attention(
         write_plan = paged_write_plan(pool_k.shape[1], block_table, pos[:, None])
     put_kv_(pool_k, write_plan, k[:, None])
     put_kv_(pool_v, write_plan, v[:, None])
-    ck = gather_pages(pool_k, block_table)  # (B, T*page, K, hd)
-    cv = gather_pages(pool_v, block_table)
+    ck = local_kv(gather_pages(pool_k, block_table), cfg)  # (B, T*page, K, hd)
+    cv = local_kv(gather_pages(pool_v, block_table), cfg)
 
-    hd = cfg.head_dim
-    g = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, cfg.n_kv_heads, g, hd).float()
+    h, hd = q.shape[1], cfg.head_dim
+    k_heads = ck.shape[2]
+    qg = q.reshape(b, k_heads, h // k_heads, hd).float()
     s = torch.einsum("bkgh,bskh->bkgs", qg, ck.float()) * hd ** -0.5
     mask = torch.arange(ck.shape[1], device=x.device)[None] <= pos[:, None]  # (B, T*page)
     s = torch.where(mask[:, None, None], s, NEG_INF)
@@ -418,6 +448,6 @@ def paged_decode_attention(
     p = torch.exp(s - m)
     o = torch.einsum("bkgs,bskh->bkgh", p, cv.float())
     o = o / torch.clamp_min(p.sum(dim=-1)[..., None], 1e-30)
-    o = o.reshape(b, cfg.n_heads, hd).to(dt)
+    o = o.reshape(b, h, hd).to(dt)
     y = torch.einsum("bhx,hxd->bd", o, params["wo"].to(dt))
-    return y, pool_k, pool_v
+    return tp.reduce(y, cfg.n_heads), pool_k, pool_v

@@ -3,13 +3,18 @@
 Port of ``repro.models.mlp``.  MoE uses the reference's sort-free scatter
 dispatch: top-k routing, position-within-expert via a one-hot cumsum,
 capacity-bounded scatter into an (E, C, d) buffer per routing group, batched
-expert matmuls, weighted gather-combine.  The reference's expert-sharding
-pins are multi-device and are left out.
+expert matmuls, weighted gather-combine.  Under a tensor-parallel mesh the
+MLP's columns, or the MoE's experts (``cfg.moe_shard == "expert"``) or each
+expert's columns (``"ffn"``), are this rank's: every rank routes the whole
+(replicated) token set, computes its part, and the caller or
+:func:`moe_block` sums the parts over the ranks.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist import tensor_parallel as tp
 
 from .common import Params, dense_init
 
@@ -38,6 +43,8 @@ def _act(cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The MLP on x (..., d); with column-sharded weights, this rank's
+    row-parallel share (``tp.reduce(.., d_ff)`` sums the shares)."""
     dt = x.dtype
     if "wi_gate" in params:
         g = _act(cfg, x @ params["wi_gate"].to(dt))
@@ -118,6 +125,8 @@ def moe_block(params: Params, x: torch.Tensor, cfg) -> tuple:
     aux = e * torch.sum(me * ce)
 
     cap = moe_capacity(cfg, s)
+    expert_parallel = getattr(cfg, "moe_shard", "expert") == "expert"
+    lo, hi = tp.local_range(e) if expert_parallel else (0, e)  # this rank's experts
     flat_e = top_e.reshape(b, s * k)  # (B, S*k) expert id per assignment
     onehot = F.one_hot(flat_e, e)  # (B, S*k, E)
     pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(-1)  # slot within (group, expert)
@@ -129,17 +138,17 @@ def moe_block(params: Params, x: torch.Tensor, cfg) -> tuple:
     group = torch.arange(b, device=x.device)[:, None]
     buf = torch.zeros((b, e, cap + 1, d), dtype=dt, device=x.device)
     buf[group, flat_e, dump] = x.repeat_interleave(k, dim=1)
-    buf = buf[:, :, :cap]  # (B, E, C, d)
+    buf = buf[:, lo:hi, :cap]  # (B, E_local, C, d)
 
     g = _act(cfg, torch.einsum("becd,edf->becf", buf, params["wi_gate"].to(dt)))
     u = torch.einsum("becd,edf->becf", buf, params["wi_up"].to(dt))
-    out = torch.einsum("becf,efd->becd", g * u, params["wo"].to(dt))  # (B, E, C, d)
+    out = torch.einsum("becf,efd->becd", g * u, params["wo"].to(dt))  # (B, E_local, C, d)
 
-    out = F.pad(out, (0, 0, 0, 1))  # the scratch slot reads 0
+    out = F.pad(out, (0, 0, 0, 1, lo, e - hi))  # the scratch slot, other ranks' experts: 0
     gathered = out[group, flat_e, dump].reshape(b, s, k, d)
     w = (top_p * keep.reshape(b, s, k)).to(dt)  # (B, S, k)
     y = torch.einsum("bskd,bsk->bsd", gathered, w)
-    return y, aux
+    return tp.reduce(y, e if expert_parallel else cfg.d_ff), aux
 
 
 def moe_block_dense(params: Params, x: torch.Tensor, cfg) -> tuple:

@@ -4,10 +4,14 @@
 Port of ``repro.models.transformer``.  Parameters are layer-stacked as in
 the reference (``params["layers"][name]`` has a leading ``n_layers`` axis);
 the layers run as a Python loop over that axis, each block checkpointed
-(``common.remat``) when ``cfg.remat`` is set and grad is enabled.  The reference's sharding
-pins are multi-device and are left out.  The serving engine's steps —
-chunked decode (``lm_decode_chunk``) and its paged twins — are plain torch
-ops, as the reference's are plain jnp.
+(``common.remat``) when ``cfg.remat`` is set and grad is enabled.  Under a
+tensor-parallel mesh (``dist.activation_sharding``, params placed by
+``dist.param_specs``) the forward is Megatron's: a vocab-sharded embedding
+lookup summed over the ranks, local attention heads and MLP columns with
+row-parallel sums, and the vocab-sharded logits gathered; the reference's
+sharding pins, which constrain layouts for XLA, have nothing to pin here.
+The serving engine's steps — chunked decode (``lm_decode_chunk``) and its
+paged twins — are plain torch ops, as the reference's are plain jnp.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ from functools import partial
 from typing import Optional
 
 import torch
+
+from repro_torch.dist import tensor_parallel as tp
 
 from . import attention as attn
 from . import mlp as mlps
@@ -86,7 +92,7 @@ def _ffn(cfg, p: Params, x: torch.Tensor) -> tuple:
     xin = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
     if cfg.family == "moe":
         return mlps.moe_block(p["moe"], xin, cfg)
-    return mlps.mlp(p["mlp"], xin, cfg), None
+    return tp.reduce(mlps.mlp(p["mlp"], xin, cfg), cfg.d_ff), None
 
 
 def _ffn_token(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -115,8 +121,8 @@ def _block_prefill(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
     q, k, v = attn.qkv_proj(p["attn"], xin, cfg)
     q = attn.apply_rope(q, positions, cfg.rope_theta)
     k = attn.apply_rope(k, positions, cfg.rope_theta)
-    o = attn.attention_impl(cfg)(q, k, v, causal=True)
-    x = x + attn.out_proj(p["attn"], o, x.dtype)
+    o = attn.attention_impl(cfg)(q, attn.local_kv(k, cfg), attn.local_kv(v, cfg), causal=True)
+    x = x + tp.reduce(attn.out_proj(p["attn"], o, x.dtype), cfg.n_heads)
     return x + _ffn(cfg, p, x)[0], (k, v)
 
 
@@ -135,9 +141,19 @@ def _block_decode(cfg, p: Params, x: torch.Tensor, ck, cv, pos, plan):
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg,
                  frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gather the rows, then cast: bit for bit the reference's cast-then-gather,
-    without casting the whole table on every call."""
+    without casting the whole table on every call.  A vocab-sharded table
+    gives each rank's rows (zeros for ids outside its slice), summed over
+    the ranks."""
     dt = as_dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dt)
+    tp.refuse_autograd(params)
+    lo, hi = tp.local_range(cfg.padded_vocab)
+    if hi - lo < cfg.padded_vocab:
+        ids = tokens.long() - lo
+        inside = ((ids >= 0) & (ids < hi - lo))[..., None]
+        rows = params["embed"][ids.clamp(0, hi - lo - 1)]
+        x = tp.reduce(torch.where(inside, rows, 0).to(dt), cfg.padded_vocab)
+    else:
+        x = params["embed"][tokens].to(dt)
     if frontend is not None:  # VLM: prepend patch embeddings
         x = torch.cat([frontend.to(dt), x], dim=1)
     if cfg.name.startswith("gemma"):
@@ -146,12 +162,15 @@ def embed_tokens(params: Params, tokens: torch.Tensor, cfg,
 
 
 def lm_logits(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Logits over the whole (padded) vocab: a vocab-sharded table's local
+    logits are gathered along the vocab, as ``logits_sharding`` gathers
+    them for sampling."""
     dt = x.dtype
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(dt))
     else:
         logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(dt))
-    return mask_vocab_pad(logits, cfg)
+    return mask_vocab_pad(tp.gather_last(logits, cfg.padded_vocab), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +218,9 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int, frontend
         raise ValueError(f"prompt of {s} tokens does not fit a cache of {max_len}")
     positions = token_positions(b, s, x.device)
     cdt = torch.bfloat16 if cfg.dtype == "bfloat16" else x.dtype
-    cache = attn.init_cache(cfg, b, max_len, cfg.n_layers, dtype=cdt, device=x.device)
+    lo, hi = tp.local_range(cfg.n_kv_heads)  # this rank's KV heads
+    cache = attn.init_cache(cfg.replace(n_kv_heads=hi - lo), b, max_len, cfg.n_layers,
+                            dtype=cdt, device=x.device)
     for i in range(cfg.n_layers):
         x, (k, v) = _block_prefill(cfg, layer_params(params["layers"], i), x, positions)
         cache["k"][i, :, :s] = k
@@ -235,6 +256,7 @@ def _chunk_attention(q, cache_k, cache_v, positions, cfg):
     (positions == Smax) see everything and produce garbage the caller drops.
     """
     b, c, h, hd = q.shape
+    cache_k, cache_v = attn.local_kv(cache_k, cfg), attn.local_kv(cache_v, cfg)
     kh = cache_k.shape[2]
     g = h // kh
     qg = q.reshape(b, c, kh, g, hd).float()
@@ -265,7 +287,7 @@ def _block_decode_chunk(cfg, p: Params, x: torch.Tensor, ck, cv, positions, plan
     attn.put_kv_(ck, plan, k)
     attn.put_kv_(cv, plan, v)
     o = _chunk_attention(q, ck, cv, positions, cfg)
-    x = x + attn.out_proj(p["attn"], o, x.dtype)
+    x = x + tp.reduce(attn.out_proj(p["attn"], o, x.dtype), cfg.n_heads)
     return x + _ffn(cfg, p, x)[0], ck, cv
 
 
@@ -321,7 +343,7 @@ def _block_decode_chunk_paged(cfg, p: Params, x: torch.Tensor, pk, pv, block_tab
     ck = attn.gather_pages(pk, block_table)  # (B, T*page, K, hd)
     cv = attn.gather_pages(pv, block_table)
     o = _chunk_attention(q, ck, cv, positions, cfg)
-    x = x + attn.out_proj(p["attn"], o, x.dtype)
+    x = x + tp.reduce(attn.out_proj(p["attn"], o, x.dtype), cfg.n_heads)
     return x + _ffn(cfg, p, x)[0], pk, pv
 
 

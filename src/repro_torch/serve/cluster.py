@@ -16,8 +16,9 @@ shares the model and one copy of the params there (each keeps its own KV
 cache and slots), as the reference's replicas share arrays when the mesh is
 ``None``; over several CUDA devices each replica takes one device, wrapping
 around, with a model built there and its own copy of the params.  Tensor
-parallelism inside a replica (the reference's ``tp > 1`` meshes) waits for
-the port's distribution layer (ROADMAP.md §1 item 11).
+parallelism inside a replica (the reference's ``tp > 1`` meshes) needs a
+process group per replica under one router (ROADMAP.md §1 item 11b); a
+single tensor-parallel engine runs with ``EngineConfig.mesh``.
 
 Replicas are built lazily on first use, so a model family the engine cannot
 serve surfaces its typed :class:`~repro_torch.serve.engine.UnsupportedFamilyError`
@@ -72,8 +73,8 @@ def replica_meshes(n_replicas: int, tp: int = 1, devices=None) -> list:
     single device the placements are ``None``: the replicas share the model
     and its params.  With ``tp == 1`` over several devices each replica gets
     one ``torch.device``, wrapping around when replicas outnumber devices.
-    ``tp > 1`` (a tensor-parallel group per replica) needs the port's
-    distribution layer and raises ``NotImplementedError``.
+    ``tp > 1`` (a tensor-parallel process group per replica under one
+    router) raises ``NotImplementedError``.
     """
     if n_replicas < 1:
         raise ValueError("n_replicas must be >= 1")
@@ -87,8 +88,9 @@ def replica_meshes(n_replicas: int, tp: int = 1, devices=None) -> list:
         )
     if tp > 1:
         raise NotImplementedError(
-            f"tensor-parallel replicas (tp={tp}) wait for the port's distribution "
-            "layer (ROADMAP.md §1 item 11); use tp=1"
+            f"tensor-parallel replicas (tp={tp}) need a process group per replica "
+            "under one router (ROADMAP.md §1 item 11b); use tp=1, or one engine with "
+            "EngineConfig.mesh"
         )
     if len(devices) == 1:
         return [None] * n_replicas

@@ -77,6 +77,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import dist as rdist
 from repro_torch.kernels import guard as kguard
 from repro_torch.kernels.api import BACKENDS, current_policy, default_backend, kernel_policy
 from repro_torch.models.api import ModelApi
@@ -173,8 +174,16 @@ class EngineConfig:
       slots against real memory.  Must hold at least one worst-case lane.
     - ``backend`` / ``autotune`` — kernel policy scoped around the steps
       (``None``: ambient policy; the backend then follows the model's device).
-    - ``mesh`` — tensor-parallel decode; only ``None`` (one device) runs in
-      the port so far (ROADMAP.md §1 item 11).
+    - ``mesh`` — a bound 1-D ``model`` :class:`~repro_torch.launch.mesh.Mesh`
+      for tensor-parallel serving (None: one device).  Every rank of the
+      mesh runs an engine with the same requests in the same order; params
+      are placed by ``dist.param_specs``, the cache by
+      ``dist.cache_shardings``/``paged_cache_shardings`` (KV heads on
+      ``model`` when divisible), and the steps run under
+      ``dist.activation_sharding(mesh)``.  Tokens come from the gathered
+      logits, so every rank samples the same ones.  The decoder families
+      (dense, moe) only; a ``data``/``pod`` axis or another family raises
+      ``NotImplementedError`` (ROADMAP.md §1 item 11b).
     - ``eos_id`` — sampled token that finishes a request early.
     - ``sampler`` — logits -> token function (greedy default).
     - ``scheduler`` — stock admission policy name used when no
@@ -289,11 +298,17 @@ class ServeEngine:
         if self.paged and (model.decode_step_paged is None
                            or model.decode_chunk_paged is None):
             raise UnsupportedFamilyError(model.cfg.family, missing="decode_chunk_paged")
-        if config.mesh is not None:
-            raise NotImplementedError(
-                "EngineConfig.mesh: tensor-parallel serving waits for the port's "
-                "distribution layer (ROADMAP.md §1 item 11); pass mesh=None"
-            )
+        self.mesh = config.mesh
+        if self.mesh is not None:
+            axes = set(getattr(self.mesh, "shape", ()))
+            if axes != {"model"} or model.cfg.family not in ("dense", "moe"):
+                raise NotImplementedError(
+                    f"EngineConfig.mesh: tensor-parallel serving runs the dense and moe "
+                    f"families on a 1-D `model` mesh; {model.cfg.family} on {self.mesh!r} "
+                    "waits (ROADMAP.md §1 item 11b)")
+            if params is not None:  # each rank keeps its shard of the global params
+                params = rdist.shard_tree(params, rdist.param_specs(params, model.cfg,
+                                                                     self.mesh))
         self.model = model
         self.device = torch.device(model.device)
         self.params = params
@@ -349,17 +364,26 @@ class ServeEngine:
             self.page_tables: list = [[] for _ in range(config.n_slots)]
             self._bt = np.zeros((config.n_slots, self._table_width), np.int32)
             self._prefixes: dict = {}  # token tuple -> SharedPrefix
-            self.cache = model.init_paged_cache(self.n_pages, ps)
+            self.cache = self._place_cache(model.init_paged_cache(self.n_pages, ps),
+                                           rdist.paged_cache_shardings)
         else:
             self.n_pages = 0
             self._pad_pos = config.max_len
-            self.cache = model.init_cache(config.n_slots, config.max_len)
+            self.cache = self._place_cache(model.init_cache(config.n_slots, config.max_len),
+                                           rdist.cache_shardings)
         self._decode, self._chunk = self._bind_steps()
         self.pos = torch.full((config.n_slots,), self._pad_pos if self.paged else 0,
                               dtype=torch.int32, device=self.device)
         self.metrics = EngineMetrics(config.n_slots, n_pages=self.n_pages)
 
     # ------------------------------------------------------------------
+    def _place_cache(self, cache, shardings_fn: Callable):
+        """This rank's shard of a fresh cache (the cache itself without a
+        mesh)."""
+        if self.mesh is None:
+            return cache
+        return rdist.shard_tree(cache, shardings_fn(cache, self.model.cfg, self.mesh))
+
     def _step_fns(self) -> tuple:
         """The model's (decode, chunk) functions for this engine's layout."""
         m = self.model
@@ -378,7 +402,7 @@ class ServeEngine:
         """
         backend = self.cfg.backend if backend is None else backend
         guard = self._guard_mode if self._guard_mode != "off" else None
-        autotune = self.cfg.autotune
+        autotune, mesh = self.cfg.autotune, self.mesh
         first = [True]
 
         def scoped(*args):
@@ -386,7 +410,10 @@ class ServeEngine:
                 first[0] = False
                 self._recompiled = True
             with kernel_policy(backend=backend, autotune=autotune, guard=guard):
-                return fn(*args)
+                if mesh is None:
+                    return fn(*args)
+                with rdist.activation_sharding(mesh):
+                    return fn(*args)
 
         return scoped
 

@@ -9,13 +9,30 @@ holds the tensors it was given.  The training path is plain torch: the
 models train on ``attn_impl="blockwise"`` and ``ssm_impl="xla"``, as the
 reference's do, and a hand kernel under autograd raises
 (``kernels/api.py``), as the reference's Pallas kernels have no backward.
+
+Data parallelism with ZeRO (``state_shardings``, from
+``dist.zero_layouts``): the reference jits its step with the state and
+batch shardings and XLA inserts the collectives; here each rank runs the
+step on its shards and the collectives are explicit.  Each rank takes its
+``batch_shardings`` slice of the global batch; the grads are summed over
+the ``pod``/``data`` ranks and divided by their number, reduce-scattered
+into the ZeRO layout when ``grad_shardings`` is set (ZeRO-2); AdamW
+updates the moments in their layout (ZeRO-1) leaf by leaf on the local
+shards, with the clip taking the global norm over every shard; params
+stored whole go back to their layout by an all-gather, params stored in the
+ZeRO layout (ZeRO-3) are gathered whole before the forward.  Microbatches
+accumulate the local grads and reduce once.
 """
 from __future__ import annotations
 
+from math import prod
 from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import (batch_shardings, gather_tree, local_index, shard_tree,
+                                       tree_map2)
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.optim import AdamW, AdamWState, clip_by_global_norm
 
@@ -47,47 +64,59 @@ def value_and_grad(loss_fn: Callable, params, batch) -> tuple:
     return loss.detach(), _unflatten_like(params, grads)
 
 
+def _loss_and_grads(loss_fn: Callable, params, batch, microbatches: int) -> tuple:
+    """The batch's mean loss and grads, accumulated in fp32 over
+    ``microbatches`` equal splits when more than one."""
+    if microbatches == 1:
+        return value_and_grad(loss_fn, params, batch)
+
+    def split(x, i):
+        b = x.shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch of {b} does not split into {microbatches} microbatches")
+        return x.reshape((microbatches, b // microbatches) + tuple(x.shape[1:]))[i]
+
+    loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                     params)
+    for i in range(microbatches):
+        mb = {k: split(v, i) for k, v in batch.items()}
+        l, g = value_and_grad(loss_fn, params, mb)
+        loss = loss + l
+        for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):
+            acc.add_(gi.float())
+        del g
+    loss = loss / microbatches
+    for acc in tree_leaves(grads):
+        acc.div_(microbatches)
+    return loss, grads
+
+
 def make_train_step(
     loss_fn: Callable,  # (params, batch) -> scalar
     optimizer: AdamW,
     lr_fn: Callable,  # step -> lr
     microbatches: int = 1,
     clip_norm: float = 1.0,
-    grad_shardings=None,
+    grad_shardings=None,  # ZeRO-2: reduce-scatter the grads into this layout
+    state_shardings=None,  # a TrainState of layouts: the data-parallel step
 ):
-    """Returns step(state, batch) -> (state, metrics)."""
+    """Returns step(state, batch) -> (state, metrics).  With
+    ``state_shardings`` (``TrainState(params=layouts.params,
+    opt=AdamWState(step=None, mu=layouts.moments, nu=layouts.moments))`` of
+    ``dist.zero_layouts``) the state holds this rank's shards and the step
+    is data-parallel over the layouts' mesh (see the module docstring);
+    every rank calls it with the same global batch."""
+    if state_shardings is not None:
+        return _data_parallel_step(loss_fn, optimizer, lr_fn, microbatches, clip_norm,
+                                   grad_shardings, state_shardings)
     if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings: ZeRO-2 grad layouts wait for the port's distribution layer "
-            "(ROADMAP.md §1 item 11); pass grad_shardings=None"
-        )
+        raise ValueError("grad_shardings (ZeRO-2) needs state_shardings, the layouts of the "
+                         "state it is sharded with")
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         params, opt_state = state
-        if microbatches == 1:
-            loss, grads = value_and_grad(loss_fn, params, batch)
-        else:
-            def split(x, i):
-                b = x.shape[0]
-                if b % microbatches:
-                    raise ValueError(f"batch of {b} does not split into {microbatches} "
-                                     "microbatches")
-                return x.reshape((microbatches, b // microbatches) + tuple(x.shape[1:]))[i]
-
-            loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
-            for i in range(microbatches):
-                mb = {k: split(v, i) for k, v in batch.items()}
-                l, g = value_and_grad(loss_fn, params, mb)
-                loss = loss + l
-                for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):
-                    acc.add_(gi.float())
-                del g
-            loss = loss / microbatches
-            for acc in tree_leaves(grads):
-                acc.div_(microbatches)
-
+        loss, grads = _loss_and_grads(loss_fn, params, batch, microbatches)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         lr = lr_fn(opt_state.step)
         updates, opt_state = optimizer.update(grads, opt_state, params, lr)
@@ -96,6 +125,91 @@ def make_train_step(
         return TrainState(params, opt_state), metrics
 
     return step
+
+
+def _data_axis(sharding, ndim: int):
+    """The dim a ZeRO layout puts on ``data`` (None: the leaf is whole)."""
+    for dim, axes in enumerate(sharding.dim_axes(ndim)):
+        if "data" in axes:
+            return dim
+    return None
+
+
+def _data_parallel_step(loss_fn, optimizer, lr_fn, microbatches, clip_norm, grad_shardings,
+                        state_shardings):
+    pstore, mspecs = state_shardings.params, state_shardings.opt.mu
+    mesh = tree_leaves(mspecs)[0].mesh
+    if mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            "training on a `model` axis needs the conjugate collectives in the backward "
+            "(ROADMAP.md §1 item 11b); train on a mesh whose model axis is 1")
+    dp = [a for a in ("pod", "data") if mesh.shape.get(a, 1) > 1]
+    n_dp = prod(mesh.shape[a] for a in dp)
+    stored_whole = all(_data_axis(sh, len(sh.spec)) is None for sh in tree_leaves(pstore))
+
+    def dp_mean(g, sh):
+        """The mean of ``g`` over the dp ranks, in ``sh``'s ZeRO layout
+        (whole when ``sh`` is None or keeps the leaf whole)."""
+        if "pod" in dp:
+            g = collectives.all_reduce(g, mesh, "pod")
+        dim = None if sh is None else _data_axis(sh, g.ndim)
+        if "data" in dp:
+            g = (collectives.reduce_scatter(g, mesh, "data", dim) if dim is not None
+                 else collectives.all_reduce(g, mesh, "data"))
+        return g.div_(n_dp)
+
+    def moments_view(t, sh, whole: bool):
+        """``t`` in the moments' layout: this rank's slice (a view) of a
+        whole leaf that the layout splits over ``data``."""
+        return t[local_index(sh, t.shape)] if whole and _data_axis(sh, t.ndim) is not None else t
+
+    def step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        stored, opt_state = state
+        params = stored if stored_whole else gather_tree(stored, pstore)  # ZeRO-3
+        local_batch = shard_tree(batch, batch_shardings(batch, mesh))
+        loss, grads = _loss_and_grads(loss_fn, params, local_batch, microbatches)
+        del params
+        loss = dp_mean(loss.float(), None)
+        if grad_shardings is None:
+            grads = tree_map(lambda g: dp_mean(g, None), grads)
+        else:  # ZeRO-2
+            grads = tree_map2(dp_mean, grads, grad_shardings)
+        grads_m = tree_map2(lambda g, sh: moments_view(g, sh, grad_shardings is None),
+                            grads, mspecs)
+        params_m = tree_map2(lambda p, sh: moments_view(p, sh, stored_whole), stored, mspecs)
+        gnorm = _global_norm(grads_m, mspecs, mesh)
+        scale = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
+        for g in tree_leaves(grads_m):
+            g.mul_(scale)
+        lr = lr_fn(opt_state.step)
+        updates, opt_state = optimizer.update(grads_m, opt_state, params_m, lr)
+        optimizer.apply(params_m, updates)
+        if stored_whole:  # every rank takes the other ranks' updated slices
+            for p, pm, sh in zip(tree_leaves(stored), tree_leaves(params_m),
+                                 tree_leaves(mspecs)):
+                dim = _data_axis(sh, p.ndim)
+                if dim is not None:
+                    p.copy_(collectives.all_gather(pm, mesh, "data", dim))
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return TrainState(stored, opt_state), metrics
+
+    return step
+
+
+@torch.no_grad()
+def _global_norm(grads_m, mspecs, mesh) -> torch.Tensor:
+    """The global norm of grads held in the moments' layout: the squares of
+    the data-sharded leaves summed over the data ranks, the whole leaves'
+    counted once."""
+    sharded, whole = [], []
+    for g, sh in zip(tree_leaves(grads_m), tree_leaves(mspecs)):
+        (whole if _data_axis(sh, g.ndim) is None else sharded).append(
+            torch.sum(torch.square(g.float())))
+    total = torch.sum(torch.stack(whole)) if whole else torch.zeros(
+        (), dtype=torch.float32, device=tree_leaves(grads_m)[0].device)
+    if sharded:
+        total = total + collectives.all_reduce(torch.sum(torch.stack(sharded)), mesh, "data")
+    return torch.sqrt(total)
 
 
 def init_state(model_init: Callable, optimizer: AdamW, gen: torch.Generator) -> TrainState:

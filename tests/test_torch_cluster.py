@@ -475,4 +475,4 @@ def test_serve_package_exports_the_references_names():
     assert all(hasattr(tserve, n) for n in tserve.__all__)
     from repro_torch import ft
 
-    assert sorted(ft.__all__) == ["HeartbeatMonitor", "StragglerDetector"]
+    assert sorted(ft.__all__) == ["ElasticController", "HeartbeatMonitor", "StragglerDetector"]

@@ -1079,3 +1079,54 @@ def test_train_steps_on_the_card_match_the_cpu(dev):
         err = (a - b).abs()
         assert int((err > tol.atol + tol.rtol * b.abs()).sum()) <= max(1, b.numel() // 100)
         assert float(err.max()) <= 0.25 * sum_lr
+
+
+# ---------------------------------------------------------------------------
+# the distribution layer: ranks sharing the card over gloo, one over NCCL
+# ---------------------------------------------------------------------------
+def test_dist_collectives_over_gloo_on_the_card(dev):
+    from repro_torch.dist import run_ranks
+
+    import torch_dist_workers as workers
+
+    for r in run_ranks(workers.card_collectives, 2, backend="gloo", device="cuda", timeout=300):
+        assert all(r.values()), r
+
+
+def test_dist_nccl_world_of_one(dev):
+    from repro_torch.dist import run_ranks
+
+    import torch_dist_workers as workers
+
+    (r,) = run_ranks(workers.card_nccl, 1, backend="nccl", device="cuda", timeout=300)
+    assert r == {"backend": "nccl", "all_reduce": True, "all_gather": True,
+                 "reduce_scatter": True}
+
+
+def test_dist_tp_prefill_launches_flash_on_each_rank(dev):
+    """gemma-2b's width at 2 layers, tp 2: each rank's prefill launches the
+    flash kernel once a layer on its 4 query heads, and the gathered last
+    logits hold against the one-rank prefill within 0.1 of their max (the
+    LM phases' bf16 limit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import run_ranks
+    from repro_torch.models import build_model
+
+    import torch_dist_workers as workers
+
+    cfg = get_config("gemma-2b").replace(n_layers=2, attn_impl="pallas")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256),
+                           generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    with torch.inference_mode():
+        want, _ = model.prefill(params, {"tokens": tokens.to(dev)})
+    want = want.float().cpu()[:, :cfg.vocab_size]
+    del params
+    torch.cuda.empty_cache()
+    for r in run_ranks(workers.card_tp_prefill, 2, cfg, tokens, backend="gloo", device="cuda",
+                       timeout=300):
+        assert r["launches"] == {"flash_attention": cfg.n_layers}
+        assert r["wq_heads"] == cfg.n_heads // 2
+        got = r["last"][:, :cfg.vocab_size]
+        assert float((got - want).abs().max() / want.abs().max()) < 0.1

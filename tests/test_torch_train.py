@@ -251,7 +251,9 @@ def test_value_and_grad_gives_zeros_to_an_unused_leaf():
 
 
 def test_grad_shardings_wait_for_the_distribution_layer():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """ZeRO-2's grad layout comes with the state's layouts (the data-parallel
+    step, ``tests/test_torch_zero.py``); alone it is refused."""
+    with pytest.raises(ValueError, match="state_shardings"):
         make_train_step(lambda p, b: 0.0, AdamW(), constant(1e-3), grad_shardings={})
 
 

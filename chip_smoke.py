@@ -188,16 +188,33 @@ Phases, in order; any failure exits non-zero before the final line:
    distance between its logits row and the ranks' at that position (each
    flip printed); tokens/s and each rank's peak memory; (b) ZeRO stages 2
    and 3 on (data=2, model=1), gemma-2b at full width in float32 compute,
-   its depth cut by a printed reckoning of the bytes two ranks hold, one
+   its depth odd, at most ``ZERO_MAX_LAYERS`` and cut further by a printed
+   reckoning of the bytes two ranks hold (``data`` on an inner dim of every
+   stacked leaf, the layout printed), one
    step of 2 x 512 tokens each against the one-process step on the same
    batch: the loss and grad norm within 1e-3, the params within
    ``tolerance(float32, "nvidia-h100-sxm")`` but for 1 % of a leaf's
-   elements, every element within 2 lr; (c) ``gpipe_apply`` over 2 stages
+   elements, every element within 2 lr; stage 3 gathers a layer at a time,
+   and its peak a rank must be below stage 2's; (c) ``gpipe_apply`` over 2 stages
    against the sequential stages and ``psum_compressed`` against the exact
    sum, on CUDA tensors; (d) a checkpoint saved under data 2 from its
    shards, restored by ``ElasticController`` on one rank, its tree equal;
    (e) a world of one rank over NCCL runs the collectives;
-14. a ``kernels`` line, one JSON line of per-kernel numbers (the flash
+14. training on a (data 2, model 2) mesh, four ranks sharing the card over
+   gloo (every collective staged through host memory), with Megatron's
+   conjugate collectives in the backward and ZeRO-3 gathering a layer at a
+   time: (a) gemma-2b, (b) olmoe-1b-7b (its 64 experts 32 a rank), each at
+   full width in float32 compute with the config's ZeRO stage (3) and
+   microbatches, its depth cut by a printed reckoning of the bytes four
+   ranks hold, one step of 4 x 512 random tokens (numpy seed 13) against
+   the one-process step on the card at the same depth over the whole batch,
+   taken before the ranks start: the loss and grad norm within 1e-3, the
+   params under (b)'s rule of phase 13; each rank's local state bytes, peak
+   and collectives (calls and bytes through the host) printed, with where
+   ZeRO-3 put ``data`` on the stacked leaves, a rank's CUDA context as
+   measured beside the reckoning's, and the MoE's dropped assignments; the
+   training path launches no kernel;
+15. a ``kernels`` line, one JSON line of per-kernel numbers (the flash
    launches count phase 13's ranks'), and the final ``{"ok": true,
    "device": ...}`` line.
 
@@ -208,6 +225,7 @@ them, 1,979 TFLOP/s (TOP/s) fp8 and int8.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -324,7 +342,19 @@ TRAIN_LAUNCH_ARGV = ["--arch", "gemma-2b", "--steps", "2", "--batch", "2", "--se
 DIST_TIMEOUT = 900  # seconds a run of ranks may take before it fails the phase
 ZERO_BATCH, ZERO_SEQ = 2, 512  # (b)'s global batch: one 512-token sequence a rank
 ZERO_FREE_SHARE = 0.85  # of the card's free memory (b)'s two ranks may plan to fill
+# (b)'s depth at most, leaving phase 14 its time; odd, so that ZeRO's ``data``
+# falls on an inner dim of each stacked leaf (phase 14 (a)'s 18 put it on the
+# layer dim): the all-gather and reduce-scatter of a layer's slices under remat
+ZERO_MAX_LAYERS = 9
 CARD_BYTES = 80e9  # the H100's memory, for (b)'s reckoning where no card is visible
+# phase 14: training on (data 2, model 2), four ranks sharing the card over gloo
+TP_TRAIN_MESH = (2, 2)  # (data, model)
+TP_TRAIN_ARCHS = ("gemma-2b", "olmoe-1b-7b")  # (a), (b)
+TP_TRAIN_BATCH, TP_TRAIN_SEQ = 4, 512  # the global batch of the one step
+# a rank's CUDA context, outside the allocator's count: phase 14 measures it
+# (``rank_context_gb``) and prints it beside this; 0.786 GB a rank on an
+# H100 80GB HBM3 at 700 W, torch 2.11.0+cu128
+RANK_CONTEXT_BYTES = 0.8e9
 LAUNCH_ARGV = ["--arch", "gemma-2b", "--requests", "8", "--prompt-len", "64", "--max-new", "16",
                "--slots", "4", "--max-len", "256", "--prefill-chunk", "64", "--replicas", "2",
                "--health", "--chaos", "--chaos-seed", "7", "--page-size", "16",
@@ -3183,7 +3213,8 @@ def zero_layers(torch, conf, free_bytes) -> tuple:
     copy, full grads before the reduce-scatter, their half, half of each
     moment, and at stage 3 the stored half too), two ranks on one card, plus
     per rank the float32 logits of one 512-token sequence and its grads
-    (3 x 512 x 256,000 x 4 bytes) and twice the largest leaf in flight."""
+    (3 x 512 x 256,000 x 4 bytes) and twice the largest leaf in flight.  The
+    depth stays odd (see ``ZERO_MAX_LAYERS``)."""
     from repro_torch.optim import AdamW
     from repro_torch.train.step import state_shapes
     from repro_torch.models import build_model
@@ -3195,25 +3226,49 @@ def zero_layers(torch, conf, free_bytes) -> tuple:
                                        for t in (shapes["embed"],
                                                  shapes["layers"]["mlp"]["wi_gate"]))
 
-    full = dist_cfg(conf).n_layers
+    full = min(dist_cfg(conf).n_layers, ZERO_MAX_LAYERS)
     p1, _ = param_bytes(1)
     p2, _ = param_bytes(2)
     per_layer, embed_and_norms = p2 - p1, 2 * p1 - p2
     act = 3 * ZERO_SEQ * dist_cfg(conf).padded_vocab * 4
     budget = ZERO_FREE_SHARE * free_bytes
-    layers = full
+    layers = full - (1 - full % 2)
     while layers > 1:
         total, leaf = param_bytes(layers)
         if 2 * (3.5 * total + act + 2 * leaf) <= budget:
             break
-        layers -= 1
+        layers -= 2
     total, leaf = param_bytes(layers)
     reckoning = {"free_gb": free_bytes / 1e9, "budget_gb": budget / 1e9,
                  "per_layer_gb": per_layer / 1e9, "embed_and_norms_gb": embed_and_norms / 1e9,
                  "params_gb": total / 1e9,
                  "per_rank_peak_gb_est": (3.5 * total + act + 2 * leaf) / 1e9,
-                 "layers": layers, "of": full}
+                 "layers": layers, "of": dist_cfg(conf).n_layers, "at_most": full}
     return layers, reckoning
+
+
+def zero3_layout(conf, arch, layers, mesh_shape) -> dict:
+    """Where ZeRO-3 puts ``data`` on ``arch``'s stacked layer leaves at
+    ``layers`` layers on a (data, model) mesh of ``mesh_shape``: how many
+    leaves it splits on the layer dim (a layer's gather a broadcast from its
+    owner), on an inner dim (an all-gather of the layer's slices), or keeps
+    whole."""
+    from repro_torch.dist import zero_layouts
+    from repro_torch.dist.zero import data_dim
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import state_shapes
+
+    cfg = dist_cfg({**conf, "arch": arch}, n_layers=layers, zero_stage=3)
+    shapes = state_shapes(build_model(cfg, device="cpu").init, AdamW()).params
+    lay = zero_layouts(shapes, cfg, Mesh(mesh_shape, ("data", "model"))).params
+    out = {"layer_dim": 0, "inner_dim": 0, "whole": 0}
+    for t, sh in zip(tree_leaves(shapes["layers"]), tree_leaves(lay["layers"])):
+        d = data_dim(sh, t.ndim)
+        out["whole" if d is None else "layer_dim" if d == 0 else "inner_dim"] += 1
+    return out
 
 
 def zero_rank(rank, conf, layers, batch, stages) -> dict:
@@ -3405,6 +3460,44 @@ def nccl_rank(rank, conf) -> dict:
     return {"backend": tdist.get_backend(), **ok}
 
 
+def zero_path(torch, dev, conf, cfg) -> None:
+    """Phase 13 (b): ZeRO stages 2 and 3 on (data=2, model=1), gemma-2b at
+    full width and the reckoning's depth, two ranks on the card; stage 3,
+    which gathers a layer at a time, must peak below stage 2 on each rank."""
+    import numpy as np
+
+    from repro_torch.dist import run_ranks
+
+    free = torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else CARD_BYTES
+    layers, reckoning = zero_layers(torch, conf, free)
+    print("dist zero: depth cut by the reckoning " + json.dumps(reckoning), flush=True)
+    rng = np.random.default_rng(13)
+    seq = rng.integers(0, cfg.vocab_size, (ZERO_BATCH, ZERO_SEQ + 1))
+    batch = {"tokens": seq[:, :-1].astype(np.int32), "targets": seq[:, 1:].astype(np.int32)}
+    layout = zero3_layout(conf, conf["arch"], layers, (2, 1))
+    if layout["layer_dim"] or not layout["inner_dim"]:
+        raise AssertionError(f"dist zero: {layers} layers do not put data on an inner dim of "
+                             f"every stacked leaf: {layout}")
+    z0, z1 = run_ranks(zero_rank, 2, conf, layers, batch, (2, 3), backend="gloo",
+                       device=dev.type, timeout=DIST_TIMEOUT)
+    one = z0["one_process"]
+    zero = {"layers": layers, "stage3_layout": layout, "one_process": one}
+    for stage in (2, 3):
+        zero[f"stage{stage}"] = {**z0[stage], "rank1": {k: v for k, v in z1[stage].items()}}
+        for k in ("loss", "grad_norm"):
+            rel = abs(z0[stage][k] - one[k]) / abs(one[k])
+            zero[f"stage{stage}"][f"{k}_rel"] = rel
+            if rel > 1e-3:
+                raise AssertionError(f"dist zero stage {stage}: {k} {z0[stage][k]} against "
+                                     f"the one-process step's {one[k]}")
+    print("dist zero data 2 (float32 compute; gloo through host memory): " + json.dumps(zero),
+          flush=True)
+    for z in (z0, z1):  # stage 3 gathers a layer at a time: below stage 2's bound
+        if dev.type == "cuda" and not z[3]["max_memory_allocated"] < z[2]["max_memory_allocated"]:
+            raise AssertionError(f"dist zero: stage 3 peaked at {z[3]['max_memory_allocated']} "
+                                 f"bytes a rank, stage 2 at {z[2]['max_memory_allocated']}")
+
+
 def dist_path(torch, dev, tp1) -> dict:
     """Phase 13: the distribution layer (see the module docstring), two ranks
     on the one card over gloo (its collectives staged through host memory)
@@ -3466,28 +3559,7 @@ def dist_path(torch, dev, tp1) -> dict:
               f"host memory, not NVLink): " + json.dumps(summary), flush=True)
 
     # (b) ZeRO data parallelism, data 2
-    free = torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else CARD_BYTES
-    layers, reckoning = zero_layers(torch, conf, free)
-    print("dist zero: depth cut by the reckoning " + json.dumps(reckoning), flush=True)
-    import numpy as np
-
-    rng = np.random.default_rng(13)
-    seq = rng.integers(0, cfg.vocab_size, (ZERO_BATCH, ZERO_SEQ + 1))
-    batch = {"tokens": seq[:, :-1].astype(np.int32), "targets": seq[:, 1:].astype(np.int32)}
-    z0, z1 = run_ranks(zero_rank, 2, conf, layers, batch, (2, 3), backend="gloo",
-                       device=dev.type, timeout=DIST_TIMEOUT)
-    one = z0["one_process"]
-    zero = {"layers": layers, "one_process": one}
-    for stage in (2, 3):
-        zero[f"stage{stage}"] = {**z0[stage], "rank1": {k: v for k, v in z1[stage].items()}}
-        for k in ("loss", "grad_norm"):
-            rel = abs(z0[stage][k] - one[k]) / abs(one[k])
-            zero[f"stage{stage}"][f"{k}_rel"] = rel
-            if rel > 1e-3:
-                raise AssertionError(f"dist zero stage {stage}: {k} {z0[stage][k]} against "
-                                     f"the one-process step's {one[k]}")
-    print("dist zero data 2 (float32 compute; gloo through host memory): " + json.dumps(zero),
-          flush=True)
+    zero_path(torch, dev, conf, cfg)
 
     # (c) GPipe and the compressed all-reduce on the card
     coll = run_ranks(collectives_rank, 2, conf, backend="gloo", device=dev.type,
@@ -3517,6 +3589,295 @@ def dist_path(torch, dev, tp1) -> dict:
                 or nc["psum_int8_rel"] > 0.01:
             raise AssertionError(f"dist: the NCCL collectives are off: {nc}")
     print(f"dist: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 14: training on a (data, model) mesh, four ranks sharing the card
+# ---------------------------------------------------------------------------
+COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter", "broadcast", "reduce", "shift")
+
+
+def tp_train_layers(torch, conf, arch, free_bytes) -> tuple:
+    """The depth phase 14's four ranks can hold at ZeRO-3 on (data 2, model
+    2), and its reckoning, phase 13(b)'s extended: each rank holds its
+    stored shard S of the fp32 params (``param_specs`` over ``model``, then
+    ZeRO over ``data``) and as much again for each moment, the grads and,
+    over microbatches, their accumulator and one microbatch's grads; one
+    layer's gathered ``model``-local slices and their grads; the gathered
+    head (the tied embedding or ``lm_head``) and its grad; three float32
+    logits-sized tensors of a microbatch's tokens (the logits, their exp,
+    their grads); its CUDA context.  Four ranks within
+    ``ZERO_FREE_SHARE`` of the card's free memory, and the one-process step
+    (the whole params, as many copies, the head and logits of the whole
+    microbatch, and twice its largest leaf for AdamW's temporaries) alone
+    within it too."""
+    from math import prod
+
+    from repro_torch.dist import param_specs, zero_layouts
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import state_shapes
+
+    mesh = Mesh(TP_TRAIN_MESH, ("data", "model"))
+
+    def nbytes(t, sh=None):
+        split = 1 if sh is None else prod(mesh.shape[a] for ax in sh.dim_axes(t.ndim) for a in ax)
+        return t.numel() * t.element_size() // split
+
+    def reckon(layers):
+        cfg = dist_cfg({**conf, "arch": arch}, n_layers=layers)
+        shapes = state_shapes(build_model(cfg, device="cpu").init, AdamW()).params
+        pspecs = param_specs(shapes, cfg, mesh)
+        stored = sum(map(nbytes, tree_leaves(shapes),
+                         tree_leaves(zero_layouts(shapes, cfg.replace(zero_stage=3), mesh).params)))
+        layer = sum(map(nbytes, tree_leaves(shapes["layers"]),
+                        tree_leaves(pspecs["layers"]))) // layers
+        head = "embed" if cfg.tie_embeddings else "lm_head"
+        tokens = TP_TRAIN_BATCH * TP_TRAIN_SEQ // cfg.train_microbatches
+        copies = 5 if cfg.train_microbatches > 1 else 4
+        logits = 3 * tokens * cfg.padded_vocab * 4
+        rank = (copies * stored + 2 * layer + 2 * nbytes(shapes[head], pspecs[head])
+                + logits // mesh.shape["data"] + RANK_CONTEXT_BYTES)
+        whole = sum(map(nbytes, tree_leaves(shapes)))
+        one = (copies * whole + 2 * nbytes(shapes[head]) + logits
+               + 2 * max(map(nbytes, tree_leaves(shapes))))
+        return {"params_gb": whole / 1e9, "stored_gb_a_rank": stored / 1e9,
+                "layer_gb_a_rank": layer / 1e9, "per_rank_peak_gb_est": rank / 1e9,
+                "ranks_gb_est": mesh.size * rank / 1e9, "one_process_gb_est": one / 1e9}
+
+    budget = ZERO_FREE_SHARE * free_bytes
+    full = dist_cfg({**conf, "arch": arch}).n_layers
+    layers = full
+    while layers > 1:
+        r = reckon(layers)
+        if max(r["ranks_gb_est"], r["one_process_gb_est"]) * 1e9 <= budget:
+            break
+        layers -= 1
+    held = ({"parent_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+             "parent_reserved_gb": torch.cuda.memory_reserved() / 1e9}
+            if torch.cuda.is_available() else {})
+    return layers, {"free_gb": free_bytes / 1e9, **held, "budget_gb": budget / 1e9,
+                    **reckon(layers), "layers": layers, "of": full}
+
+
+def tp_train_batch(cfg) -> dict:
+    """Phase 14's global batch: TP_TRAIN_BATCH x TP_TRAIN_SEQ random tokens
+    (numpy seed 13)."""
+    import numpy as np
+
+    seq = np.random.default_rng(13).integers(0, cfg.vocab_size, (TP_TRAIN_BATCH, TP_TRAIN_SEQ + 1))
+    return {"tokens": seq[:, :-1].astype(np.int32), "targets": seq[:, 1:].astype(np.int32)}
+
+
+def tp_train_reference(torch, dev, conf, arch, layers, batch, path) -> dict:
+    """Phase 14's one-process step on the card at the rank run's depth, from
+    the same seeded params over the whole batch; its params are written to
+    ``path`` (a dict by leaf path, on the host) and freed.  A MoE's dropped
+    assignments are counted on the initial params in an untimed forward."""
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train.step import TrainState, make_train_step
+
+    cfg = dist_cfg({**conf, "arch": arch}, n_layers=layers, dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    out = {"microbatches": cfg.train_microbatches, "zero_stage": cfg.zero_stage}
+    if cfg.family == "moe":
+        with torch.no_grad(), moe_drops() as seen:
+            model.loss_fn(params, tb)
+        out["drops"] = int(seen["drops"])
+        out["assignments"] = layers * TP_TRAIN_BATCH * TP_TRAIN_SEQ * cfg.experts_per_token
+    opt = AdamW()
+    step = make_train_step(model.loss_fn, opt, constant(conf["lr"]),
+                           microbatches=cfg.train_microbatches)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    (state, m), step_s, launches = counted(torch, lambda: step(TrainState(params, opt.init(params)),
+                                                              tb))
+    out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), step_s=step_s,
+               launches=launches, max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                                                        if dev.type == "cuda" else None))
+    torch.save({name: t.cpu() for name, t in leaf_paths(state.params)}, path)
+    del state, params, model, opt, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_rank(rank, conf, arch, layers, batch, ref_path) -> dict:
+    """Phase 14 (a)/(b) on one rank of (data=2, model=2): ``arch`` at full
+    width and ``layers`` layers, float32 compute, the config's ZeRO stage and
+    microbatches; the params made from the seed one rank at a time and
+    sharded; one step over the global batch, with the collectives counted
+    (calls and the bytes of their inputs, each staged through the host over
+    gloo) and the kernel launches; then this rank's stored params against
+    their slices of the one-process step's in ``ref_path``: per leaf slice
+    the elements past 256 ulps and the largest error."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.dist import collectives, shard_tree, zero_layouts
+    from repro_torch.dist.sharding import local_index
+    from repro_torch.kernels import _util, guard
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamW, AdamWState
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train.step import TrainState, make_train_step, state_shapes
+
+    mesh = rank_mesh(TP_TRAIN_MESH, ("data", "model"), conf)
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    cfg = dist_cfg({**conf, "arch": arch}, n_layers=layers, dtype="float32")
+    model = build_model(cfg, device=dev)
+    opt = AdamW()
+    lay = zero_layouts(state_shapes(build_model(cfg, device="cpu").init, opt).params, cfg, mesh)
+    state = None
+    for turn in range(mesh.size):  # one rank at a time holds the whole tree
+        if turn == rank:
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            state = TrainState(shard_tree(params, lay.params),
+                               opt.init(shard_tree(params, lay.moments)))
+            del params
+            if on_card:
+                torch.cuda.empty_cache()
+        tdist.barrier()
+    step = make_train_step(model.loss_fn, opt, constant(conf["lr"]),
+                           microbatches=cfg.train_microbatches, grad_shardings=lay.grads,
+                           state_shardings=TrainState(lay.params, AdamWState(
+                               None, lay.moments, lay.moments)))
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    stats = {}
+    real = {name: getattr(collectives, name) for name in COLLECTIVES}
+
+    def count(name, fn):
+        def run(x, *args, **kw):
+            s = stats.setdefault(name, {"calls": 0, "bytes": 0})
+            s["calls"] += 1
+            s["bytes"] += x.numel() * x.element_size()
+            return fn(x, *args, **kw)
+        return run
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    for name, fn in real.items():
+        setattr(collectives, name, count(name, fn))
+    try:
+        _util.reset_launch_counts()
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, tb)
+        sync()
+        step_s = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(collectives, name, fn)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "step_s": step_s,
+           "launches": _util.launch_counts(), "collectives": stats,
+           "state_bytes_local": tree_bytes(state),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev) if on_card else None}
+    if on_card:  # the card's use while every rank holds its memory, and each allocator's part
+        tdist.barrier()
+        reserved = [None] * mesh.size
+        tdist.all_gather_object(reserved, torch.cuda.memory_reserved(dev))
+        free, total = torch.cuda.mem_get_info(dev)
+        tdist.barrier()
+        out.update(card_used=total - free, memory_reserved=reserved)
+    tol = guard.tolerance(torch.float32, conf["hw"])
+    ref = torch.load(ref_path, mmap=True)
+    slices = {}
+    for (name, got), sh in zip(leaf_paths(state.params), tree_leaves(lay.params)):
+        idx = local_index(sh, ref[name].shape)
+        want = ref[name][idx].to(dev)
+        err = (got.float() - want.float()).abs()
+        slices[name] = {str([(i.start, i.stop) for i in idx]): (
+            int((err > tol.atol + tol.rtol * want.float().abs()).sum()), float(err.max()),
+            got.numel())}
+    out["slices"] = slices
+    return out
+
+
+def slices_rule(ranks, ref_numel, lr) -> dict:
+    """Phase 13(b)'s param rule over the ranks' slices of each leaf (a slice
+    that several ranks hold counted once): at most 1 % of a leaf's elements
+    past 256 ulps (at least one), every element within 2 lr.  Returns the
+    counts; raises past the rule."""
+    from repro_torch.kernels import guard
+
+    tol = guard.tolerance("float32", CARD_HW)
+    outside, worst, n = 0, 0.0, 0
+    for name, numel in ref_numel.items():
+        parts = {k: v for r in ranks for k, v in r["slices"][name].items()}
+        k = sum(p[0] for p in parts.values())
+        w = max(p[1] for p in parts.values())
+        if sum(p[2] for p in parts.values()) != numel:
+            raise AssertionError(f"dist tp train: the ranks' slices of {name} do not tile it")
+        outside, worst, n = outside + k, max(worst, w), n + numel
+        if k > max(1, numel // 100) or w > 2 * lr + tol.atol:
+            raise AssertionError(f"dist tp train: {name} of {numel} has {k} elements outside "
+                                 f"256 ulps, the worst {w} (lr {lr})")
+    return {"elements": n, "elements_outside_256_ulps": outside, "max_abs_err": worst}
+
+
+def tp_train_path(torch, dev) -> dict:
+    """Phase 14: training on (data 2, model 2) (see the module docstring),
+    four ranks on the one card over gloo.  Returns the ranks' launch counts,
+    which must be none."""
+    from repro_torch.dist import run_ranks
+
+    phase_start = time.perf_counter()
+    conf = dist_conf(dev)
+    counts = {}
+    for arch in TP_TRAIN_ARCHS:
+        free = torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else CARD_BYTES
+        layers, reckoning = tp_train_layers(torch, conf, arch, free)
+        print(f"dist tp train {arch}: depth cut by the reckoning " + json.dumps(reckoning),
+              flush=True)
+        batch = tp_train_batch(dist_cfg({**conf, "arch": arch}))
+        with tempfile.TemporaryDirectory() as tmp:
+            ref_path = os.path.join(tmp, "one_process_params.pt")
+            one = tp_train_reference(torch, dev, conf, arch, layers, batch, ref_path)
+            numel = {k: v.numel() for k, v in torch.load(ref_path, mmap=True).items()}
+            if dev.type == "cuda":
+                free, total = torch.cuda.mem_get_info(dev)
+            ranks = run_ranks(tp_train_rank, 4, conf, arch, layers, batch, ref_path,
+                              backend="gloo", device=dev.type, timeout=DIST_TIMEOUT)
+        for r in ranks:
+            add_counts(counts, r["launches"])
+        res = {"layers": layers, "one_process": {k: v for k, v in one.items() if k != "launches"},
+               "loss": [r["loss"] for r in ranks], "grad_norm": [r["grad_norm"] for r in ranks],
+               "step_s": [r["step_s"] for r in ranks],
+               "state_gb_local": [r["state_bytes_local"] / 1e9 for r in ranks],
+               "max_memory_allocated_gb": [None if r["max_memory_allocated"] is None
+                                           else r["max_memory_allocated"] / 1e9 for r in ranks],
+               "collectives_rank0": ranks[0]["collectives"],
+               "host_gb_a_rank": [sum(c["bytes"] for c in r["collectives"].values()) / 1e9
+                                  for r in ranks],
+               "stage3_layout": zero3_layout(conf, arch, layers, TP_TRAIN_MESH)}
+        if dev.type == "cuda":  # what the ranks added to the card past their allocators
+            r0 = ranks[0]
+            res["rank_context_gb"] = ((r0["card_used"] - (total - free)
+                                       - sum(r0["memory_reserved"])) / len(ranks) / 1e9)
+            res["rank_context_gb_reckoned"] = RANK_CONTEXT_BYTES / 1e9
+        for k in ("loss", "grad_norm"):
+            res[f"{k}_rel"] = max(abs(r[k] - one[k]) / abs(one[k]) for r in ranks)
+            if res[f"{k}_rel"] > 1e-3:
+                raise AssertionError(f"dist tp train {arch}: {k} {[r[k] for r in ranks]} against "
+                                     f"the one-process step's {one[k]}")
+        res["params"] = slices_rule(ranks, numel, conf["lr"])
+        print(f"dist tp train {arch} on (data 2, model 2), {TP_TRAIN_BATCH} x {TP_TRAIN_SEQ} "
+              "tokens (float32 compute; gloo through host memory, not NVLink): " + json.dumps(res),
+              flush=True)
+        if any(any(r["launches"].values()) or any(one["launches"].values()) for r in ranks):
+            raise AssertionError(f"dist tp train {arch}: the training path launched a kernel: "
+                                 f"{[r['launches'] for r in ranks]}, {one['launches']}")
+    print(f"dist tp train: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
     return counts
 
 
@@ -3609,8 +3970,12 @@ def main() -> int:
     del params, model, single
     torch.cuda.empty_cache()  # the training phase needs the card's memory
     add_counts(counts, train_path(torch, dev))
+    gc.collect()  # earlier phases' engines hold device memory in reference cycles
     torch.cuda.empty_cache()  # the ranks of phase 13 share the card
     add_counts(counts, dist_path(torch, dev, tp1))
+    gc.collect()
+    torch.cuda.empty_cache()  # the four ranks of phase 14 share the card
+    add_counts(counts, tp_train_path(torch, dev))
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print("kernels: " + " ".join(KERNELS))

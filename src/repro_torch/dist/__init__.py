@@ -3,10 +3,13 @@
 Port of ``repro.dist``, SPMD: one process per rank, each holding its shard.
 
 - ``sharding``         name-based parameter specs, placement (``shard_tree``)
-- ``zero``             ZeRO-1/2/3 state partitioning over the data axis
+- ``zero``             ZeRO-1/2/3 state partitioning over the data axis, and
+                       ZeRO-3's gathers a layer at a time
 - ``compress``         int8 gradient compression for cross-pod links
 - ``pipeline``         GPipe microbatch pipelining over a mesh axis
-- ``tensor_parallel``  Megatron's forward on the ``model`` axis
+- ``tensor_parallel``  Megatron's collectives on the ``model`` axis, each
+                       with its conjugate in the backward
+- ``data_parallel``    means over the global batch on the batch axes
 - ``collectives``      the collectives those imply, over one mesh axis
 - ``launcher``         ``run_ranks``: a function on N local ranks
 

@@ -69,6 +69,29 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tens
     return out.movedim(0, dim).contiguous()
 
 
+def broadcast(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
+    """The ``x`` of the rank at index ``src`` of the ``axis`` line, on every
+    rank of it; the other ranks' ``x`` gives only the shape and dtype."""
+    group = mesh.group(axis)
+    bits = _wire(x, group)
+    if mesh.index(axis) != src:
+        bits = torch.empty_like(bits)
+    elif not _gloo_host(x, group):  # _wire gave x's own storage
+        bits = bits.clone()
+    dist.broadcast(bits, mesh.axis_ranks(axis)[src], group=group)
+    return _unwire(bits, x)
+
+
+def reduce(x: torch.Tensor, mesh, axis: str, dst: int):
+    """Sum of ``x`` over the ``axis`` ranks, in ``x``'s dtype, on the rank
+    at index ``dst`` of the line; None on the others."""
+    group = mesh.group(axis)
+    acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
+    y = x.to("cpu" if _gloo_host(x, group) else x.device, acc, copy=True)
+    dist.reduce(y, mesh.axis_ranks(axis)[dst], group=group)
+    return y.to(x.device, x.dtype) if mesh.index(axis) == dst else None
+
+
 def shift(x: torch.Tensor, mesh, axis: str, step: int = 1) -> torch.Tensor:
     """``x`` sent ``step`` places along the ``axis`` ring; returns what the
     rank ``step`` places back sent (``jax.lax.ppermute`` over the ring)."""

@@ -12,7 +12,9 @@ rank that raises or hangs makes the call raise, after every rank is gone.
 
 The backend is stated, never switched: NCCL when every rank has a GPU of
 its own, gloo when ranks share one GPU or run on the CPU
-(:func:`choose_backend`).  NCCL refuses two ranks on one GPU.
+(:func:`choose_backend`).  NCCL refuses two ranks on one GPU.  The ranks run
+on the card unless the caller asks for the CPU; with no card visible the
+call raises ``NoCudaDeviceError`` before any rank starts.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import traceback
 from typing import Callable, Optional
 
 import torch
+
+from repro_torch.core.timing import NoCudaDeviceError
 
 BACKENDS = ("gloo", "nccl")
 
@@ -69,15 +73,20 @@ def _worker(rank: int, n: int, store_path: str, backend: str, device: str, timeo
     results.put((rank, *out))
 
 
-def run_ranks(fn: Callable, n: int, *args, backend: Optional[str] = None, device: str = "cpu",
+def run_ranks(fn: Callable, n: int, *args, backend: Optional[str] = None, device: str = "cuda",
               timeout: float = 600.0) -> list:
     """``[fn(0, *args), ..., fn(n - 1, *args)]``, each on its own rank of
     one world.  ``fn`` and ``args`` must pickle (a module-level function);
     so must each result.  ``device`` is "cpu" or "cuda"; ``backend``
     defaults to :func:`choose_backend`.  Raises ``RuntimeError`` with every
     failing rank's traceback (a rank's failure makes its peers' collectives
-    fail too), or ``TimeoutError`` after ``timeout`` seconds."""
+    fail too), or ``TimeoutError`` after ``timeout`` seconds;
+    ``NoCudaDeviceError`` when ``device`` is "cuda" and no card is visible."""
     import multiprocessing as mp
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise NoCudaDeviceError("no CUDA device is visible; pass device='cpu' to run the ranks "
+                                "on the host")
 
     backend = backend or choose_backend(device, n)
     if backend not in BACKENDS:

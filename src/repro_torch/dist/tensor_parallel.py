@@ -1,5 +1,5 @@
-"""Megatron's tensor-parallel forward on the ``model`` axis of the current
-mesh, for the transformer decoder's params placed by ``param_specs``.
+"""Megatron's tensor parallelism on the ``model`` axis of the current mesh,
+for the transformer decoder's params placed by ``param_specs``.
 
 Each helper decides from the global dim the rule sharded (``n_heads``,
 ``d_ff``, ``padded_vocab``...) by the rule's own divisibility guard, so a dim
@@ -7,9 +7,16 @@ the rule left replicated is never reduced.  With no current mesh, or a
 ``model`` axis of 1, each is the identity (or the whole range): one device
 runs the model unchanged.
 
-Under autograd a ``model`` axis > 1 raises ``NotImplementedError`` before
-any collective: training on a ``model`` axis needs the conjugate collectives
-in the backward (ROADMAP.md §1 item 11b).
+Under autograd each collective has Megatron's conjugate in the backward:
+:func:`reduce` (a row-parallel exit, "g") sums forward and passes the
+gradient through; :func:`copy` (a column-parallel entry, "f") passes forward
+and sums the gradient; :func:`gather_last` gathers forward and keeps this
+rank's slice of the gradient.  What holds them right: on every rank a
+replicated activation carries the whole gradient, so each replicated leaf's
+gradient is the one-device gradient and each sharded leaf's is its slice.
+A replicated tensor read only in part on a rank (whole KV heads read by the
+local query heads, a bias sliced to the local heads) takes its own
+:func:`copy` before the partial read.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ from typing import Optional
 import torch
 
 from . import collectives
-from .sharding import current_mesh, tree_leaves
+from .sharding import current_mesh
 
 
 def _tp_mesh():
@@ -48,30 +55,72 @@ def local_range(dim: int) -> tuple:
     return i * (dim // n), (i + 1) * (dim // n)
 
 
-def refuse_autograd(params) -> None:
-    """Raise before any collective when a ``model`` axis > 1 would run under
-    autograd."""
-    if (_tp_mesh() is not None and torch.is_grad_enabled()
-            and any(p.requires_grad for p in tree_leaves(params))):
+def refuse(what: str) -> None:
+    """Raise before any collective where ``what``, which has no
+    tensor-parallel forward, would run on a ``model`` axis > 1."""
+    if _tp_mesh() is not None:
         raise NotImplementedError(
-            "training on a `model` axis needs the conjugate collectives in the "
-            "backward (ROADMAP.md §1 item 11b); run the model axis under no_grad")
+            f"{what} has no tensor-parallel forward: its params would be sharded while it "
+            "computes as if whole; a `model` axis > 1 waits (ROADMAP.md §1 item 11b)")
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, mesh):
+        return collectives.all_reduce(y, mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives.all_reduce(g, ctx.mesh, "model"), None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, mesh):
+        ctx.lo, ctx.n = mesh.index("model") * y.shape[-1], y.shape[-1]
+        return collectives.all_gather(y, mesh, "model", dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.lo, ctx.n), None
 
 
 def reduce(y: torch.Tensor, dim: int) -> torch.Tensor:
     """The sum over the ``model`` ranks of a row-parallel partial ``y``,
-    when the contracted dim (global size ``dim``) is sharded."""
+    when the contracted dim (global size ``dim``) is sharded; the gradient
+    passes through to each rank's partial."""
     if not sharded(dim):
         return y
-    return collectives.all_reduce(y, _tp_mesh(), "model")
+    return _Reduce.apply(y, _tp_mesh())
+
+
+def copy(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` entering a computation split on a dim of global size ``dim``:
+    itself forward, its gradient summed over the ``model`` ranks (each
+    rank's part computes a partial one) when that dim is sharded."""
+    if not sharded(dim) or not torch.is_grad_enabled():
+        return x
+    return _Copy.apply(x, _tp_mesh())
 
 
 def gather_last(y: torch.Tensor, dim: int) -> torch.Tensor:
     """The ``model`` ranks' last-dim slices of ``y`` gathered, when that dim
-    (global size ``dim``) is sharded."""
+    (global size ``dim``) is sharded; the gradient keeps this rank's slice
+    (every rank holds the same gradient of the gathered tensor)."""
     if not sharded(dim):
         return y
-    return collectives.all_gather(y, _tp_mesh(), "model", dim=-1)
+    return _GatherLast.apply(y, _tp_mesh())
 
 
 def kv_heads_for_local_q(n_heads: int, n_kv_heads: int, kv_local: int) -> Optional[object]:

@@ -22,16 +22,22 @@ paged fields ``None``, as in the reference, so the serving engine refuses
 them.
 The reference's ``cache_shardings``/``paged_cache_shardings`` fields are
 ``dist.cache_shardings``/``paged_cache_shardings`` of the family's config,
-which the serving engine calls.
+which the serving engine calls.  The ssm, hybrid and encoder-decoder
+families have no tensor-parallel forward: their ``loss_fn`` refuses a
+``model`` axis > 1 and takes ZeRO-3's stored params whole (:func:`_whole`);
+the serving engine refuses them on a mesh.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist import zero
 
 from . import attention as attn
 from . import encdec, mamba, transformer, xlstm
@@ -152,11 +158,24 @@ def _check_generator(gen: torch.Generator, device: torch.device) -> None:
         raise ValueError(f"generator on {gen.device} for a model on {device}")
 
 
+def _whole(what: str, fn: Callable) -> Callable:
+    """``loss_fn(params, batch)`` of a family with no tensor-parallel
+    forward, as the training step calls it: it refuses a ``model`` axis > 1 before any collective, and takes ZeRO-3's
+    stored params gathered whole (``dist.zero.whole_tree``)."""
+
+    def run(params, batch):
+        tp.refuse(what)
+        return fn(zero.whole_tree(params), batch)
+
+    return run
+
+
 def _xlstm_model(cfg: ModelConfig, device: torch.device) -> ModelApi:
     def init(gen: torch.Generator):
         _check_generator(gen, device)
         return xlstm.xlstm_init(gen, cfg)
 
+    @partial(_whole, "the xLSTM")
     def loss_fn(params, batch):
         return xlstm.xlstm_loss(params, batch, cfg)
 
@@ -181,6 +200,7 @@ def _hybrid_model(cfg: ModelConfig, device: torch.device) -> ModelApi:
         _check_generator(gen, device)
         return mamba.zamba_init(gen, cfg)
 
+    @partial(_whole, "the Mamba2 hybrid")
     def loss_fn(params, batch):
         return mamba.zamba_loss(params, batch, cfg)
 
@@ -206,6 +226,7 @@ def _encdec_model(cfg: ModelConfig, device: torch.device) -> ModelApi:
         _check_generator(gen, device)
         return encdec.encdec_init(gen, cfg)
 
+    @partial(_whole, "the encoder-decoder")
     def loss_fn(params, batch):
         return encdec.encdec_loss(params, batch, cfg)
 

@@ -14,7 +14,11 @@ its query heads of ``wq``/``wo`` and, where the ``model`` axis divides
 them, its KV heads; a replicated bias is sliced to the local heads
 (:func:`local_bias`), the query heads read their global KV heads
 (:func:`local_kv`), and the output projection, row-parallel, is summed over
-the ranks.
+the ranks.  Under autograd the block's input enters the split heads through
+``tp.copy`` (its gradient summed over the ranks); KV heads kept whole are
+projected from the input as it is and take their own ``copy`` before the
+local query heads read them, since each rank's heads give them only part of
+their gradient.
 """
 from __future__ import annotations
 
@@ -72,9 +76,10 @@ def out_proj(params: Params, o: torch.Tensor, x_dtype) -> torch.Tensor:
 
 def local_bias(b: torch.Tensor, n_heads: int) -> torch.Tensor:
     """A replicated per-head bias (..., n_heads, hd) cut to the heads this
-    rank's head-sharded weights produce."""
+    rank's head-sharded weights produce (its gradient, partial on each
+    rank, summed over them)."""
     lo, hi = tp.local_range(n_heads)
-    return b[..., lo:hi, :]
+    return tp.copy(b, n_heads)[..., lo:hi, :]
 
 
 def local_kv(kv: torch.Tensor, cfg, dim: int = 2) -> torch.Tensor:
@@ -201,8 +206,13 @@ def attention_block(
     ``kv_x`` switches to cross-attention (keys/values from encoder states).
     """
     dt = x.dtype
-    xkv = x if kv_x is None else kv_x
-    q = torch.einsum("bsd,dhx->bshx", x, params["wq"].to(dt))
+    kv_whole = not tp.sharded(cfg.n_kv_heads)  # read in part by the local query heads
+    xq = tp.copy(x, cfg.n_heads)
+    if kv_x is None:
+        xkv = x if kv_whole else xq
+    else:
+        xkv = kv_x if kv_whole else tp.copy(kv_x, cfg.n_kv_heads)
+    q = torch.einsum("bsd,dhx->bshx", xq, params["wq"].to(dt))
     k = torch.einsum("bsd,dkx->bskx", xkv, params["wk"].to(dt))
     v = torch.einsum("bsd,dkx->bskx", xkv, params["wv"].to(dt))
     if "bq" in params:
@@ -213,6 +223,8 @@ def attention_block(
         q = apply_rope(q, positions, cfg.rope_theta)
         kpos = positions if kv_positions is None else kv_positions
         k = apply_rope(k, kpos, cfg.rope_theta)
+    if kv_whole:
+        k, v = tp.copy(k, cfg.n_heads), tp.copy(v, cfg.n_heads)
     o = attention_impl(cfg)(q, local_kv(k, cfg), local_kv(v, cfg), causal=causal)
     return tp.reduce(out_proj(params, o, dt), cfg.n_heads)
 

@@ -169,19 +169,24 @@ def remat(fn, cfg, policy: str = "full"):
     calls, without grad, run it as it is.  ``policy`` "full" recomputes the
     whole block in the backward; "dots" saves the matmul outputs
     (``aten.mm``/``aten.bmm``, what the block's einsums reduce to) and
-    recomputes the rest.  Recomputing changes no number."""
+    recomputes the rest.  Recomputing changes no number.  The recompute
+    runs under the forward's mesh and ZeRO-3 state (``dist.zero.in_scope``):
+    the backward may run on another thread, as it does on the card."""
     if not cfg.remat:
         return fn
     from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+    from repro_torch.dist.zero import in_scope
+
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
+        block = in_scope(fn)
         if policy == "dots":
             ops = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default]
-            return checkpoint(fn, *args, use_reentrant=False,
+            return checkpoint(block, *args, use_reentrant=False,
                               context_fn=lambda: create_selective_checkpoint_contexts(ops))
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(block, *args, use_reentrant=False)
 
     return run
 

@@ -7,7 +7,12 @@ expert matmuls, weighted gather-combine.  Under a tensor-parallel mesh the
 MLP's columns, or the MoE's experts (``cfg.moe_shard == "expert"``) or each
 expert's columns (``"ffn"``), are this rank's: every rank routes the whole
 (replicated) token set, computes its part, and the caller or
-:func:`moe_block` sums the parts over the ranks.
+:func:`moe_block` sums the parts over the ranks.  The router runs whole on
+every rank; only the combine branch (the dispatched tokens and their
+weights) enters the split computation through ``tp.copy``, since the aux
+loss's gradient is whole already.  The aux loss's router statistics are
+means over the global batch (``dist.data_parallel.batch_mean``), as under
+the reference's jitted step.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist.data_parallel import batch_mean
 
 from .common import Params, dense_init
 
@@ -120,13 +126,15 @@ def moe_block(params: Params, x: torch.Tensor, cfg) -> tuple:
     probs, top_p, top_e = _route(params, x, k)  # (B, S, E), (B, S, k) x 2
 
     # load-balancing aux loss (Switch-style), computed globally
-    me = probs.mean(dim=(0, 1))  # (E,)
-    ce = F.one_hot(top_e, e).float().sum(dim=(0, 1, 2)) / (b * s * k)
+    me = batch_mean(probs.mean(dim=(0, 1)))  # (E,)
+    ce = batch_mean(F.one_hot(top_e, e).float().sum(dim=(0, 1, 2)) / (b * s * k))
     aux = e * torch.sum(me * ce)
 
     cap = moe_capacity(cfg, s)
     expert_parallel = getattr(cfg, "moe_shard", "expert") == "expert"
+    split = e if expert_parallel else cfg.d_ff  # the dim the experts' work is split on
     lo, hi = tp.local_range(e) if expert_parallel else (0, e)  # this rank's experts
+    x, top_p = tp.copy(x, split), tp.copy(top_p, split)  # the combine branch
     flat_e = top_e.reshape(b, s * k)  # (B, S*k) expert id per assignment
     onehot = F.one_hot(flat_e, e)  # (B, S*k, E)
     pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(-1)  # slot within (group, expert)
@@ -148,7 +156,7 @@ def moe_block(params: Params, x: torch.Tensor, cfg) -> tuple:
     gathered = out[group, flat_e, dump].reshape(b, s, k, d)
     w = (top_p * keep.reshape(b, s, k)).to(dt)  # (B, S, k)
     y = torch.einsum("bskd,bsk->bsd", gathered, w)
-    return tp.reduce(y, e if expert_parallel else cfg.d_ff), aux
+    return tp.reduce(y, split), aux
 
 
 def moe_block_dense(params: Params, x: torch.Tensor, cfg) -> tuple:
@@ -169,7 +177,7 @@ def moe_block_dense(params: Params, x: torch.Tensor, cfg) -> tuple:
     o = torch.einsum("tef,efd->ted", g * u, params["wo"].to(dt))
     y = torch.einsum("ted,te->td", o, comb.to(dt))
 
-    me = probs.mean(dim=0)
-    ce = F.one_hot(top_e.reshape(-1), e).float().sum(dim=0) / top_e.numel()
+    me = batch_mean(probs.mean(dim=0))
+    ce = batch_mean(F.one_hot(top_e.reshape(-1), e).float().sum(dim=0) / top_e.numel())
     aux = e * torch.sum(me * ce)
     return y.reshape(b, s, d), aux

@@ -8,8 +8,11 @@ the layers run as a Python loop over that axis, each block checkpointed
 tensor-parallel mesh (``dist.activation_sharding``, params placed by
 ``dist.param_specs``) the forward is Megatron's: a vocab-sharded embedding
 lookup summed over the ranks, local attention heads and MLP columns with
-row-parallel sums, and the vocab-sharded logits gathered; the reference's
-sharding pins, which constrain layouts for XLA, have nothing to pin here.
+row-parallel sums, and the vocab-sharded logits gathered, each collective
+with its conjugate in the backward; the reference's sharding pins, which
+constrain layouts for XLA, have nothing to pin here.  Under ZeRO-3
+(``dist.zero.layerwise``) each layer's stored slices are gathered inside its
+block, the embedding, final norm and ``lm_head`` where they are used.
 The serving engine's steps — chunked decode (``lm_decode_chunk``) and its
 paged twins — are plain torch ops, as the reference's are plain jnp.
 """
@@ -21,6 +24,8 @@ from typing import Optional
 import torch
 
 from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist import zero
+from repro_torch.dist.zero import layer_list
 
 from . import attention as attn
 from . import mlp as mlps
@@ -35,7 +40,6 @@ from .common import (
     scalar,
     softmax_xent,
     token_positions,
-    tree_leaves,
     tree_map,
 )
 
@@ -73,16 +77,6 @@ def layer_params(layers: Params, i) -> Params:
     return tree_map(lambda a: a[i], layers)
 
 
-def layer_list(layers: Params) -> list:
-    """Every layer's params along the stacked leading axis, views made by one
-    ``unbind`` of each leaf.  Under autograd its backward stacks the layers'
-    grads in one op, where indexing each layer out (:func:`layer_params`)
-    adds a zero-filled copy of the whole stack per layer."""
-    split = tree_map(lambda a: a.unbind(0), layers)
-    return [tree_map(lambda parts: parts[i], split)
-            for i in range(tree_leaves(layers)[0].shape[0])]
-
-
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -92,7 +86,7 @@ def _ffn(cfg, p: Params, x: torch.Tensor) -> tuple:
     xin = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
     if cfg.family == "moe":
         return mlps.moe_block(p["moe"], xin, cfg)
-    return tp.reduce(mlps.mlp(p["mlp"], xin, cfg), cfg.d_ff), None
+    return tp.reduce(mlps.mlp(p["mlp"], tp.copy(xin, cfg.d_ff), cfg), cfg.d_ff), None
 
 
 def _ffn_token(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -104,7 +98,10 @@ def _ffn_token(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block_apply(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
-    """Pre-norm block. x: (B,S,d). Returns (x, aux)."""
+    """Pre-norm block. x: (B,S,d). Returns (x, aux).  ZeRO-3's stored
+    slices are gathered here, inside the checkpointed block: freed after
+    it, gathered again when the backward recomputes it."""
+    p = zero.whole_tree(p)
     h = attn.attention_block(
         p["attn"], rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg, positions, causal=True
     )
@@ -143,17 +140,19 @@ def embed_tokens(params: Params, tokens: torch.Tensor, cfg,
     """Gather the rows, then cast: bit for bit the reference's cast-then-gather,
     without casting the whole table on every call.  A vocab-sharded table
     gives each rank's rows (zeros for ids outside its slice), summed over
-    the ranks."""
+    the ranks.  The VLM's frontend has no tensor-parallel form yet."""
+    if frontend is not None:
+        tp.refuse("the VLM frontend")
     dt = as_dtype(cfg.dtype)
-    tp.refuse_autograd(params)
+    table = zero.whole(params["embed"])
     lo, hi = tp.local_range(cfg.padded_vocab)
     if hi - lo < cfg.padded_vocab:
         ids = tokens.long() - lo
         inside = ((ids >= 0) & (ids < hi - lo))[..., None]
-        rows = params["embed"][ids.clamp(0, hi - lo - 1)]
+        rows = table[ids.clamp(0, hi - lo - 1)]
         x = tp.reduce(torch.where(inside, rows, 0).to(dt), cfg.padded_vocab)
     else:
-        x = params["embed"][tokens].to(dt)
+        x = table[tokens].to(dt)
     if frontend is not None:  # VLM: prepend patch embeddings
         x = torch.cat([frontend.to(dt), x], dim=1)
     if cfg.name.startswith("gemma"):
@@ -166,10 +165,11 @@ def lm_logits(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     logits are gathered along the vocab, as ``logits_sharding`` gathers
     them for sampling."""
     dt = x.dtype
+    x = tp.copy(x, cfg.padded_vocab)
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(dt))
+        logits = torch.einsum("bsd,vd->bsv", x, zero.whole(params["embed"]).to(dt))
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(dt))
+        logits = torch.einsum("bsd,dv->bsv", x, zero.whole(params["lm_head"]).to(dt))
     return mask_vocab_pad(tp.gather_last(logits, cfg.padded_vocab), cfg)
 
 
@@ -186,7 +186,7 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg, frontend=None):
     for lp in layer_list(params["layers"]):
         x, a = block(lp, x, positions)
         aux = aux + a
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = rmsnorm(zero.whole_tree(params["final_norm"]), x, cfg.norm_eps)
     return lm_logits(params, x, cfg), aux
 
 

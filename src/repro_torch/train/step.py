@@ -10,29 +10,34 @@ models train on ``attn_impl="blockwise"`` and ``ssm_impl="xla"``, as the
 reference's do, and a hand kernel under autograd raises
 (``kernels/api.py``), as the reference's Pallas kernels have no backward.
 
-Data parallelism with ZeRO (``state_shardings``, from
-``dist.zero_layouts``): the reference jits its step with the state and
-batch shardings and XLA inserts the collectives; here each rank runs the
-step on its shards and the collectives are explicit.  Each rank takes its
-``batch_shardings`` slice of the global batch; the grads are summed over
-the ``pod``/``data`` ranks and divided by their number, reduce-scattered
-into the ZeRO layout when ``grad_shardings`` is set (ZeRO-2); AdamW
-updates the moments in their layout (ZeRO-1) leaf by leaf on the local
-shards, with the clip taking the global norm over every shard; params
-stored whole go back to their layout by an all-gather, params stored in the
-ZeRO layout (ZeRO-3) are gathered whole before the forward.  Microbatches
-accumulate the local grads and reduce once.
+Distribution (``state_shardings``, from ``dist.zero_layouts`` over a mesh
+of ``pod``/``data`` and ``model`` axes): the reference jits its step with
+the state and batch shardings and XLA inserts the collectives; here each
+rank runs the step on its shards, under the mesh (``activation_sharding``),
+and the collectives are explicit.  Each rank takes its share of every
+microbatch of the global batch (the reference splits the global batch into
+microbatches, each sharded over the batch axes); the model's
+tensor-parallel collectives and their conjugates act on ``model``.  The
+grads are summed over the ``pod``/``data`` ranks and divided by their
+number, reduce-scattered into the ZeRO layout when ``grad_shardings`` is set
+(ZeRO-2); AdamW updates the moments in their layout (ZeRO-1) leaf by leaf on
+the local shards, with the clip taking the global norm over every shard;
+params stored whole over ``data`` go back to their layout by an all-gather.
+ZeRO-3 params stay in their layout: the model gathers each where it uses it,
+a layer at a time (``dist.zero.layerwise``), and the grads of those split
+over ``data`` arrive summed over it.  Microbatches accumulate the local
+grads, reduced once (ZeRO-3's split leaves in the backward of each).
 """
 from __future__ import annotations
 
+import contextlib
 from math import prod
 from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.dist import collectives
-from repro_torch.dist.sharding import (batch_shardings, gather_tree, local_index, shard_tree,
-                                       tree_map2)
+from repro_torch.dist import collectives, zero
+from repro_torch.dist.sharding import activation_sharding, batch_shardings, local_index, tree_map2
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.optim import AdamW, AdamWState, clip_by_global_norm
 
@@ -127,56 +132,68 @@ def make_train_step(
     return step
 
 
-def _data_axis(sharding, ndim: int):
-    """The dim a ZeRO layout puts on ``data`` (None: the leaf is whole)."""
-    for dim, axes in enumerate(sharding.dim_axes(ndim)):
-        if "data" in axes:
-            return dim
-    return None
+def _rank_batch(batch, mesh, microbatches: int):
+    """This rank's rows of the global batch, microbatch by microbatch: its
+    local microbatch i is its share of the global batch's microbatch i."""
+    first = {k: v[:v.shape[0] // microbatches] for k, v in batch.items()}
+
+    def one(x, sh):
+        if x.shape[0] % microbatches:
+            raise ValueError(f"batch of {x.shape[0]} does not split into {microbatches} "
+                             "microbatches")
+        split = x.reshape(microbatches, x.shape[0] // microbatches, *x.shape[1:])
+        part = split[(slice(None),) + local_index(sh, split.shape[1:])]
+        return part.reshape(-1, *x.shape[1:]).to(mesh.device, copy=True).contiguous()
+
+    return tree_map2(one, batch, batch_shardings(first, mesh))
 
 
 def _data_parallel_step(loss_fn, optimizer, lr_fn, microbatches, clip_norm, grad_shardings,
                         state_shardings):
     pstore, mspecs = state_shardings.params, state_shardings.opt.mu
     mesh = tree_leaves(mspecs)[0].mesh
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "training on a `model` axis needs the conjugate collectives in the backward "
-            "(ROADMAP.md §1 item 11b); train on a mesh whose model axis is 1")
     dp = [a for a in ("pod", "data") if mesh.shape.get(a, 1) > 1]
     n_dp = prod(mesh.shape[a] for a in dp)
-    stored_whole = all(_data_axis(sh, len(sh.spec)) is None for sh in tree_leaves(pstore))
+    layerwise = any(zero.data_dim(sh, len(sh.spec)) is not None for sh in tree_leaves(pstore))
 
-    def dp_mean(g, sh):
+    def dp_mean(g, sh, over_data=True):
         """The mean of ``g`` over the dp ranks, in ``sh``'s ZeRO layout
-        (whole when ``sh`` is None or keeps the leaf whole)."""
+        (whole when ``sh`` is None or keeps the leaf whole); ``over_data``
+        False: ``g`` is summed over ``data`` already."""
         if "pod" in dp:
             g = collectives.all_reduce(g, mesh, "pod")
-        dim = None if sh is None else _data_axis(sh, g.ndim)
-        if "data" in dp:
+        dim = None if sh is None else zero.data_dim(sh, g.ndim)
+        if "data" in dp and over_data:
             g = (collectives.reduce_scatter(g, mesh, "data", dim) if dim is not None
                  else collectives.all_reduce(g, mesh, "data"))
         return g.div_(n_dp)
 
     def moments_view(t, sh, whole: bool):
         """``t`` in the moments' layout: this rank's slice (a view) of a
-        whole leaf that the layout splits over ``data``."""
-        return t[local_index(sh, t.shape)] if whole and _data_axis(sh, t.ndim) is not None else t
+        leaf whole over ``data`` that the layout splits over it."""
+        dim = zero.data_dim(sh, t.ndim)
+        if not whole or dim is None:
+            return t
+        n = t.shape[dim] // mesh.shape["data"]
+        return t.narrow(dim, mesh.index("data") * n, n)
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         stored, opt_state = state
-        params = stored if stored_whole else gather_tree(stored, pstore)  # ZeRO-3
-        local_batch = shard_tree(batch, batch_shardings(batch, mesh))
-        loss, grads = _loss_and_grads(loss_fn, params, local_batch, microbatches)
-        del params
+        local_batch = _rank_batch(batch, mesh, microbatches)
+        with activation_sharding(mesh), (zero.layerwise(stored, pstore) if layerwise
+                                         else contextlib.nullcontext()):
+            loss, grads = _loss_and_grads(loss_fn, stored, local_batch, microbatches)
         loss = dp_mean(loss.float(), None)
-        if grad_shardings is None:
+        if layerwise:  # ZeRO-3: a split leaf's summed over data in its gather's backward
+            grads = tree_map2(lambda g, sh: dp_mean(g, None, zero.data_dim(sh, g.ndim) is None),
+                              grads, pstore)
+        elif grad_shardings is None:
             grads = tree_map(lambda g: dp_mean(g, None), grads)
         else:  # ZeRO-2
             grads = tree_map2(dp_mean, grads, grad_shardings)
-        grads_m = tree_map2(lambda g, sh: moments_view(g, sh, grad_shardings is None),
-                            grads, mspecs)
-        params_m = tree_map2(lambda p, sh: moments_view(p, sh, stored_whole), stored, mspecs)
+        whole_grads = grad_shardings is None and not layerwise
+        grads_m = tree_map2(lambda g, sh: moments_view(g, sh, whole_grads), grads, mspecs)
+        params_m = tree_map2(lambda p, sh: moments_view(p, sh, not layerwise), stored, mspecs)
         gnorm = _global_norm(grads_m, mspecs, mesh)
         scale = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
         for g in tree_leaves(grads_m):
@@ -184,10 +201,10 @@ def _data_parallel_step(loss_fn, optimizer, lr_fn, microbatches, clip_norm, grad
         lr = lr_fn(opt_state.step)
         updates, opt_state = optimizer.update(grads_m, opt_state, params_m, lr)
         optimizer.apply(params_m, updates)
-        if stored_whole:  # every rank takes the other ranks' updated slices
+        if not layerwise:  # every rank takes the other ranks' updated slices
             for p, pm, sh in zip(tree_leaves(stored), tree_leaves(params_m),
                                  tree_leaves(mspecs)):
-                dim = _data_axis(sh, p.ndim)
+                dim = zero.data_dim(sh, p.ndim)
                 if dim is not None:
                     p.copy_(collectives.all_gather(pm, mesh, "data", dim))
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
@@ -198,17 +215,20 @@ def _data_parallel_step(loss_fn, optimizer, lr_fn, microbatches, clip_norm, grad
 
 @torch.no_grad()
 def _global_norm(grads_m, mspecs, mesh) -> torch.Tensor:
-    """The global norm of grads held in the moments' layout: the squares of
-    the data-sharded leaves summed over the data ranks, the whole leaves'
-    counted once."""
-    sharded, whole = [], []
+    """The global norm of grads held in the moments' layout: each leaf's
+    squares summed over the ``data`` and ``model`` ranks its layout splits
+    it over, a whole leaf's counted once."""
+    groups: dict = {}
     for g, sh in zip(tree_leaves(grads_m), tree_leaves(mspecs)):
-        (whole if _data_axis(sh, g.ndim) is None else sharded).append(
-            torch.sum(torch.square(g.float())))
-    total = torch.sum(torch.stack(whole)) if whole else torch.zeros(
-        (), dtype=torch.float32, device=tree_leaves(grads_m)[0].device)
-    if sharded:
-        total = total + collectives.all_reduce(torch.sum(torch.stack(sharded)), mesh, "data")
+        split = {a for axes in sh.dim_axes(g.ndim) for a in axes}
+        key = tuple(a for a in ("data", "model") if a in split and mesh.shape.get(a, 1) > 1)
+        groups.setdefault(key, []).append(torch.sum(torch.square(g.float())))
+    total = torch.zeros((), dtype=torch.float32, device=tree_leaves(grads_m)[0].device)
+    for axes in sorted(groups):
+        part = torch.sum(torch.stack(groups[axes]))
+        for a in axes:
+            part = collectives.all_reduce(part, mesh, a)
+        total = total + part
     return torch.sqrt(total)
 
 

@@ -1103,6 +1103,54 @@ def test_dist_nccl_world_of_one(dev):
                  "reduce_scatter": True}
 
 
+def test_dist_2d_zero3_step_on_the_card_matches_one_process_and_the_cpu(dev):
+    """gemma-2b reduced's step on (data=2, model=2), four gloo ranks on the
+    card at ZeRO stage 3 (its two microbatches), against the one-process
+    step on the card and on the CPU from the same params and batch: the loss
+    and grad norm within 1e-5 relative, every rank's gathered params under
+    tests/test_torch_train.py's rule (for one step, a quarter of the lr)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import run_ranks
+    from repro_torch.kernels import guard
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train.step import TrainState, make_train_step
+
+    import torch_dist_workers as workers
+
+    cfg = get_config("gemma-2b").reduced().replace(zero_stage=3)
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    batch = SyntheticLM(cfg.vocab_size, 32, 4, seed=0).batch_at(0)
+    lr = 1e-3
+    want = {}
+    for where in ("cpu", dev):
+        model = build_model(cfg, device=where)
+        opt = AdamW()
+        p = tree_map(lambda t: t.to(where, copy=True), params)  # the step writes in place
+        step = make_train_step(model.loss_fn, opt, constant(lr),
+                               microbatches=cfg.train_microbatches)
+        state, m = step(TrainState(p, opt.init(p)),
+                        {k: torch.from_numpy(v).to(where) for k, v in batch.items()})
+        want[str(where)] = ({k: float(m[k]) for k in ("loss", "grad_norm")},
+                            [t.cpu() for t in tree_leaves(state.params)])
+    tol = guard.tolerance(torch.float32, "nvidia-h100-sxm")
+    ranks = run_ranks(workers.card_2d_step, 4, cfg, params, batch, lr, backend="gloo",
+                      device="cuda", timeout=300)
+    for r in ranks:
+        assert r["device"] == "cuda" and not any(r["launches"].values())
+        for metrics, leaves in want.values():
+            for k in ("loss", "grad_norm"):
+                np.testing.assert_allclose(r["metrics"][k], metrics[k], rtol=1e-5)
+            for a, b in zip(tree_leaves(r["params"]), leaves):
+                err = (a - b).abs()
+                outside = int((err > tol.atol + tol.rtol * b.abs()).sum())
+                assert outside <= max(1, b.numel() // 100)
+                assert float(err.max()) <= 0.25 * lr
+
+
 def test_dist_tp_prefill_launches_flash_on_each_rank(dev):
     """gemma-2b's width at 2 layers, tp 2: each rank's prefill launches the
     flash kernel once a layer on its 4 query heads, and the gathered last

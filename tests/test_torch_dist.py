@@ -195,7 +195,7 @@ def test_psum_compressed_matches_the_reference_shard_map():
         """, n_devices=2)
     want = np.array([float(v) for v in out[out.index("OUT") + 3:].strip().split(",")],
                     np.float32)
-    r0, r1 = run_ranks(workers.compress, 2, x, timeout=120)
+    r0, r1 = run_ranks(workers.compress, 2, x, device="cpu", timeout=120)
     np.testing.assert_array_equal(r0["int8"], want)
     np.testing.assert_array_equal(r1["int8"], want)
     np.testing.assert_array_equal(r0["none"], 3 * x)
@@ -234,7 +234,7 @@ def test_gpipe_matches_the_reference_and_the_sequential_stages():
     for s in range(n_stages):
         seq = torch.tanh(seq @ tw[s])
     (seq ** 2).sum().backward()
-    for r in run_ranks(workers.gpipe, 2, w, x, timeout=120):
+    for r in run_ranks(workers.gpipe, 2, w, x, device="cpu", timeout=120):
         np.testing.assert_allclose(r["y"], ref, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(r["y"], seq.detach().numpy(), rtol=1e-6, atol=1e-6)
         np.testing.assert_allclose(r["grad"], tw.grad.numpy(), rtol=1e-5, atol=1e-5)
@@ -244,11 +244,22 @@ def test_gpipe_matches_the_reference_and_the_sequential_stages():
 def test_run_ranks_returns_in_rank_order_and_fails_with_a_rank():
     from repro_torch.dist import choose_backend
 
-    assert run_ranks(workers.world, 3, timeout=120) == [(r, 3, "gloo") for r in range(3)]
+    assert (run_ranks(workers.world, 3, device="cpu", timeout=120)
+            == [(r, 3, "gloo") for r in range(3)])
     assert choose_backend("cpu", 2) == "gloo"
     with pytest.raises(RuntimeError, match="rank 1 failed(.|\\n)*on purpose"):
-        run_ranks(workers.fail_on_one, 2, timeout=120)
+        run_ranks(workers.fail_on_one, 2, device="cpu", timeout=120)
     with pytest.raises(TimeoutError, match="of 2 ranks did not finish"):
-        run_ranks(workers.hang_on_one, 2, timeout=10)
+        run_ranks(workers.hang_on_one, 2, device="cpu", timeout=10)
     with pytest.raises(ValueError, match="unknown backend"):
-        run_ranks(workers.world, 1, backend="mpi")
+        run_ranks(workers.world, 1, backend="mpi", device="cpu")
+
+
+def test_run_ranks_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """No ``device``: the card; with none visible, ``NoCudaDeviceError``
+    before any rank starts (no fallback to the host)."""
+    from repro_torch.core.timing import NoCudaDeviceError
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
+        run_ranks(workers.world, 2, timeout=120)

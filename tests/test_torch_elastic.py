@@ -36,7 +36,7 @@ def test_save_on_data_2_restore_on_another_mesh_and_on_one_rank():
     tree = _tree()
     with tempfile.TemporaryDirectory() as d, tempfile.TemporaryDirectory() as ref_d:
         JCheckpointManager(ref_d).save(5, {k: jnp.asarray(v) for k, v in tree.items()})
-        res = run_ranks(workers.save_then_reshard, 2, d, tree, ref_d, timeout=120)
+        res = run_ranks(workers.save_then_reshard, 2, d, tree, ref_d, device="cpu", timeout=120)
         for rank, r in enumerate(res):
             assert r["step"] == 3 and r["ref_step"] == 5
             # (data=1, model=2): w split on its columns, b on its only dim
@@ -52,7 +52,7 @@ def test_save_on_data_2_restore_on_another_mesh_and_on_one_rank():
         for k in tree:
             np.testing.assert_array_equal(np.asarray(back[k]), tree[k])
         (one,) = run_ranks(workers.elastic_resume, 1, d, {k: v.shape for k, v in tree.items()},
-                           timeout=120)
+                           device="cpu", timeout=120)
     assert one["mesh"] == {"data": 1, "model": 1}
     assert one["step"] == 3 and one["seek"] == 3
     for k in tree:

@@ -44,6 +44,7 @@ PROMPTS = [[1 + (i % 5), 2, 3 + i % 7] for i in range(4)]
 MAX_NEW = 6
 TPS = (1, 2, 4)
 NAMES_AT = {1: ("gemma-2b",), 2: ("gemma-2b", "qwen2.5-14b"), 4: ("gemma-2b", "olmoe-1b-7b")}
+REFUSING = ("zamba2-7b", "xlstm-1.3b")  # families with no tensor-parallel forward
 
 
 @lru_cache(maxsize=None)
@@ -71,7 +72,8 @@ def _reference(name):
 def _served(n):
     """Every rank's results at tp ``n``: per (name, page_size) case."""
     cases = [(name, _np_params(name), ps) for name in NAMES_AT[n] for ps in (None, 4)]
-    res = run_ranks(workers.tp_engines, n, n, cases, PROMPTS, MAX_NEW, timeout=300)
+    res = run_ranks(workers.tp_engines, n, n, cases, PROMPTS, MAX_NEW, device="cpu",
+                    timeout=300)
     return {(name, ps): [r[i] for r in res] for i, (name, _, ps) in enumerate(cases)}
 
 
@@ -122,9 +124,19 @@ def test_kv_heads_for_local_query_heads():
             assert read(h, k, n, i) == [(lo + j) // (h // k) for j in range(h // n)], (h, k, n, i)
 
 
-def test_tp_under_autograd_raises_before_any_collective():
-    (msg, _) = run_ranks(workers.tp_refuses_autograd, 2, _np_params("gemma-2b"), timeout=120)
-    assert msg is not None and "11b" in msg
+@lru_cache(maxsize=None)
+def _refusals():
+    (got, _) = run_ranks(workers.tp_refuses_families, 2, REFUSING, device="cpu", timeout=120)
+    return got
+
+
+@pytest.mark.parametrize("name", REFUSING)
+def test_families_without_a_tp_forward_refuse_a_model_axis(name):
+    """A ``value_and_grad`` on a 2-rank ``model`` mesh raises before any
+    collective, naming the item that waits."""
+    msg, issued = _refusals()[name]
+    assert msg is not None and "11b" in msg, msg
+    assert issued == []
 
 
 def test_engine_refuses_what_waits():

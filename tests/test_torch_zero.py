@@ -12,10 +12,10 @@ within that tolerance, against the unsharded port step on the same global
 batch; against the reference's step, the rule of ``tests/test_torch_train.py``
 (AdamW's 1/eps slope at a zero grad).
 
-The MoE aux loss is not linear in the batch: each rank forms it from its
-own half's router statistics, so the data-parallel step is the unsharded
-step of the mean of the two halves' losses, not of the whole batch's loss.
-The test pins that (ROADMAP.md §3 records it as a fault).
+The MoE aux loss is not linear in the batch: its router statistics are
+means over the global batch (``dist.data_parallel.batch_mean`` across the
+data ranks), so olmoe's data-parallel step is the step on the whole batch,
+the reference's and the unsharded port's.
 """
 from functools import lru_cache
 
@@ -50,6 +50,7 @@ LR = 1e-3
 BATCH, SEQ = 4, 32
 NAMES = ("gemma-2b", "olmoe-1b-7b")
 STAGES = (1, 2, 3)
+WHOLE = ("zamba2-7b", "xlstm-1.3b")  # families whose ZeRO-3 params are gathered whole
 
 
 def _np_params(name):
@@ -72,18 +73,19 @@ def _leaves(tree, prefix=""):
 def _sharded():
     """Every (name, stage) run on 2 ranks in one spawn: {(name, stage):
     [rank 0's result, rank 1's]}."""
-    runs = [(n, s, _np_params(n), [_batch(n)]) for n in NAMES for s in STAGES]
-    res = run_ranks(workers.zero_steps, 2, runs, LR, timeout=300)
+    runs = ([(n, s, _np_params(n), [_batch(n)]) for n in NAMES for s in STAGES]
+            + [(n, 3, _np_params(n), [_batch(n)]) for n in WHOLE])
+    res = run_ranks(workers.zero_steps, 2, runs, LR, device="cpu", timeout=300)
     return {(n, s): [res[0][i], res[1][i]] for i, (n, s, _, _) in enumerate(runs)}
 
 
-def _port_step(name, loss_fn=None):
+def _port_step(name):
     """The unsharded port step on the global batch: (metrics, params, mu)."""
     cfg = tconfigs.get_config(name).reduced()
     model = build_model(cfg, device="cpu")
     params = params_from_jax(_np_params(name), cfg, device="cpu")
     opt = AdamW()
-    step = make_train_step(loss_fn or model.loss_fn, opt, constant(LR))
+    step = make_train_step(model.loss_fn, opt, constant(LR))
     state, m = step(TrainState(params, opt.init(params)),
                     {k: torch.from_numpy(v) for k, v in _batch(name).items()})
     np_tree = lambda t: tree_map(lambda x: x.numpy(), t)  # noqa: E731
@@ -140,29 +142,64 @@ def test_zero_gemma_matches_the_reference_step(stage):
 
 
 @pytest.mark.parametrize("stage", STAGES)
-def test_zero_olmoe_is_the_step_of_the_halves_mean_loss(stage):
-    """The MoE's data-parallel step equals the unsharded step of the mean of
-    the two halves' losses, and its loss differs from the whole batch's by
-    the aux term's nonlinearity alone."""
+def test_zero_olmoe_matches_the_whole_batch_step(stage):
+    """The MoE's data-parallel step takes its aux loss over the whole batch:
+    it equals the unsharded port step and the reference's step on it."""
     r0, r1 = _sharded()[("olmoe-1b-7b", stage)]
-    cfg = tconfigs.get_config("olmoe-1b-7b").reduced()
-    model = build_model(cfg, device="cpu")
-    half = BATCH // 2
-
-    def halves_loss(params, batch):
-        return 0.5 * sum(model.loss_fn(params, {k: v[i * half:(i + 1) * half]
-                                                for k, v in batch.items()})
-                         for i in range(2))
-
-    m, params, mu = _port_step("olmoe-1b-7b", halves_loss)
-    whole, _, _ = _port_step("olmoe-1b-7b")
+    m, params, mu = _port_step("olmoe-1b-7b")
+    jm, jparams = _ref_step("olmoe-1b-7b")
     for r in (r0, r1):
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(r["metrics"][0][k], m[k], rtol=_F32.rtol, err_msg=k)
         _within_tolerance(r["params"], params, f"stage {stage} params")
         _within_tolerance(r["mu"], mu, f"stage {stage} mu")
-    assert abs(m["loss"] - whole["loss"]) > 1e-6, (m["loss"], whole["loss"])
-    assert abs(m["loss"] - whole["loss"]) < cfg.moe_aux_coef * 1.0, (m["loss"], whole["loss"])
+        np.testing.assert_allclose(r["metrics"][0]["loss"], jm["loss"], rtol=1e-5)
+        np.testing.assert_allclose(r["metrics"][0]["grad_norm"], jm["grad_norm"], rtol=1e-4)
+        _train_rule(r["params"], jparams, LR)
+
+
+@pytest.mark.parametrize("name", WHOLE)
+def test_zero3_families_without_layer_gathers_take_their_params_whole(name):
+    """A family whose forward has no layer-wise gathers (``models/api.py``
+    gathers its stored ZeRO-3 params whole at the entry): its stage-3 step
+    equals the unsharded step."""
+    m, params, mu = _port_step(name)
+    for r in _sharded()[(name, 3)]:
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(r["metrics"][0][k], m[k], rtol=_F32.rtol, err_msg=k)
+        _within_tolerance(r["params"], params, f"{name} params")
+        _within_tolerance(r["mu"], mu, f"{name} mu")
+
+
+EXTRA = {"whole-over-data-read-directly": ((3, 5), False),
+         "split-read-through-whole": ((4, 3), True),
+         "split-read-directly": ((4, 3), False)}
+
+
+@lru_cache(maxsize=None)
+def _extra_leaf():
+    res = run_ranks(workers.zero3_extra_leaf, 2, list(EXTRA.values()), LR, device="cpu",
+                    timeout=120)
+    return {case: [r[i] for r in res] for i, case in enumerate(EXTRA)}
+
+
+@pytest.mark.parametrize("case", list(EXTRA))
+def test_zero3_step_sums_a_leaf_read_outside_the_layer_gathers(case):
+    """A stored leaf the model reads outside ``layer_list``: kept whole over
+    ``data`` (no dim of 3 x 5 divides 2), read directly, the step sums its
+    gradient over the data ranks itself; split over ``data`` and taken
+    through ``dist.zero.whole``, its gather's backward does; split and read
+    directly (its shard alone), the step raises rather than update it with
+    this rank's part of its gradient."""
+    for r in _extra_leaf()[case]:
+        if case == "split-read-directly":
+            assert "extra" in r["error"] and "without gathering" in r["error"], r
+            continue
+        assert r["data_dim"] == (None if case.startswith("whole") else 0)
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(r["metrics"][k], r["one_metrics"][k], rtol=_F32.rtol)
+        for k in ("extra", "embed"):
+            _within_tolerance(r["params"][k], r["one_params"][k], f"{case}: {k}")
 
 
 def test_zero_layouts_follow_the_stage():

@@ -14,6 +14,7 @@ from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.dist import (P, NamedSharding, gather_tree, gpipe_apply, psum_compressed,
                               shard_tree, zero_layouts)
+from repro_torch.dist.sharding import tree_map2, tree_map_with_path
 from repro_torch.ft import ElasticController
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import build_model
@@ -26,7 +27,7 @@ from repro_torch.train.step import TrainState, make_train_step
 
 
 def _np(tree):
-    return tree_map(lambda t: t.detach().numpy().copy(), tree)
+    return tree_map_with_path(lambda _, t: t.detach().numpy().copy(), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +118,58 @@ def zero_steps(rank, runs, lr):
     return out
 
 
+def zero3_extra_leaf(rank, cases, lr):
+    """For each (extra leaf's shape, whether the loss takes it through
+    ``dist.zero.whole``) of ``cases``: gemma-2b ``reduced()`` with one extra
+    param, whose loss adds a batch-dependent term in it, one stage-3 step on
+    (data=2, model=1) against the one-process step on the global batch on
+    this rank.  Returns, per case, both metrics and the gathered extra leaf
+    and embedding, or the step's error."""
+    from repro_torch.dist import zero
+
+    mesh = Mesh((2, 1), ("data", "model")).bind()
+    cfg = get_config("gemma-2b").reduced().replace(zero_stage=3)
+    model = build_model(cfg, device="cpu")
+    batch = {"tokens": torch.arange(64, dtype=torch.int32).reshape(4, 16) % cfg.vocab_size}
+    batch["targets"] = (batch["tokens"] + 1) % cfg.vocab_size
+    out = []
+    for shape, through_whole in cases:
+        def loss_fn(params, b):
+            extra = zero.whole(params["extra"]) if through_whole else params["extra"]
+            rest = {k: v for k, v in params.items() if k != "extra"}
+            return model.loss_fn(rest, b) + (extra ** 2).sum() * b["tokens"].float().mean() / 64
+
+        def fresh():
+            params = model.init(torch.Generator().manual_seed(0))
+            params["extra"] = torch.linspace(-1, 1, int(np.prod(shape))).reshape(shape)
+            return params
+
+        opt = AdamW()
+        one = make_train_step(loss_fn, opt, constant(lr), microbatches=cfg.train_microbatches)
+        params = fresh()
+        one_state, one_m = one(TrainState(params, opt.init(params)), batch)
+        params = fresh()
+        lay = zero_layouts(params, cfg, mesh)
+        state = TrainState(shard_tree(params, lay.params), opt.init(shard_tree(params,
+                                                                              lay.moments)))
+        step = make_train_step(loss_fn, opt, constant(lr), microbatches=cfg.train_microbatches,
+                               grad_shardings=lay.grads,
+                               state_shardings=TrainState(lay.params, AdamWState(
+                                   None, lay.moments, lay.moments)))
+        try:
+            state, m = step(state, batch)
+        except RuntimeError as e:
+            out.append({"error": str(e)})
+            continue
+        got = gather_tree(state.params, lay.params)
+        out.append({"metrics": {k: float(v) for k, v in m.items()},
+                    "one_metrics": {k: float(v) for k, v in one_m.items()},
+                    "data_dim": zero.data_dim(lay.params["extra"], len(shape)),
+                    "params": _np({k: got[k] for k in ("extra", "embed")}),
+                    "one_params": _np({k: one_state.params[k] for k in ("extra", "embed")})})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # tensor-parallel serving on a 1-D model axis
 # ---------------------------------------------------------------------------
@@ -146,24 +199,182 @@ def tp_engines(rank, tp, cases, prompts, max_new):
     return out
 
 
-def tp_refuses_autograd(rank, np_params):
-    """A model axis > 1 under autograd must raise before any collective."""
-    from repro_torch.dist import activation_sharding, param_specs
+def tp_refuses_families(rank, names):
+    """For each name: a ``value_and_grad`` of its ``reduced()`` model on a
+    2-rank ``model`` mesh must raise ``NotImplementedError`` before any
+    collective.  Returns each name's message and the collectives issued."""
+    from repro_torch.dist import activation_sharding, collectives
     from repro_torch.train.step import value_and_grad
 
     mesh = Mesh((2,), ("model",)).bind()
-    cfg = get_config("gemma-2b").reduced()
-    model = build_model(cfg, device="cpu")
-    params = params_from_jax(np_params, cfg, device="cpu")
-    local = shard_tree(params, param_specs(params, cfg, mesh))
-    batch = {"tokens": torch.ones((2, 8), dtype=torch.int32),
-             "targets": torch.ones((2, 8), dtype=torch.int32)}
-    with activation_sharding(mesh):
+    issued = []
+    real = {k: getattr(collectives, k) for k in ("all_reduce", "all_gather", "broadcast",
+                                                  "reduce", "reduce_scatter", "shift")}
+    for k, fn in real.items():
+        setattr(collectives, k, lambda *a, _k=k, _fn=fn, **kw: issued.append(_k) or _fn(*a, **kw))
+    out = {}
+    try:
+        for name in names:
+            cfg = get_config(name).reduced()
+            model = build_model(cfg, device="cpu")
+            params = model.init(torch.Generator().manual_seed(0))
+            batch = {"tokens": torch.ones((2, 8), dtype=torch.int32),
+                     "targets": torch.ones((2, 8), dtype=torch.int32)}
+            with activation_sharding(mesh):
+                try:
+                    value_and_grad(model.loss_fn, params, batch)
+                    out[name] = (None, list(issued))
+                except NotImplementedError as e:
+                    out[name] = (str(e), list(issued))
+    finally:
+        for k, fn in real.items():
+            setattr(collectives, k, fn)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training on a (data, model) mesh
+# ---------------------------------------------------------------------------
+def _local_slices(specs, shapes):
+    """Each leaf's slice on this rank, as (start, stop) pairs."""
+    from repro_torch.dist.sharding import local_index
+
+    return tree_map2(lambda sh, t: [(s.start, s.stop) for s in local_index(sh, t.shape)],
+                     specs, shapes)
+
+
+def tp_grads(rank, cases, batch):
+    """For each (name, np_params, config overrides) of ``cases``: a
+    ``value_and_grad`` of the ``reduced()`` model on (data=1, model=2) over
+    the whole ``batch``, from the global params placed by ``param_specs``;
+    this rank's loss, its local grads and each leaf's slice."""
+    from repro_torch.dist import activation_sharding, param_specs
+    from repro_torch.train.step import value_and_grad
+
+    mesh = Mesh((1, 2), ("data", "model")).bind()
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = []
+    for name, np_params, kw in cases:
+        cfg = get_config(name).reduced().replace(**kw)
+        model = build_model(cfg, device="cpu")
+        params = params_from_jax(np_params, cfg, device="cpu")
+        specs = param_specs(params, cfg, mesh)
+        local = shard_tree(params, specs)
+        with activation_sharding(mesh):
+            if cfg.remat:  # the backward on another thread, as the card runs it
+                loss, grads = _backward_elsewhere(model.loss_fn, local, tbatch)
+            else:
+                loss, grads = value_and_grad(model.loss_fn, local, tbatch)
+        out.append({"loss": float(loss), "grads": _np(grads),
+                    "slices": _local_slices(specs, params)})
+    return out
+
+
+def _backward_elsewhere(loss_fn, params, batch):
+    """``value_and_grad`` with the forward on this thread and the backward
+    (the checkpointed blocks' recompute with it) on a fresh one, where no
+    mesh is current: on the card the autograd engine runs a device's
+    backward on its own worker thread."""
+    import threading
+
+    from repro_torch.models.common import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = loss_fn(params, batch)
+    box = {}
+    worker = threading.Thread(target=lambda: box.update(g=torch.autograd.grad(loss, leaves)))
+    worker.start()
+    worker.join()
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.detach(), _unflatten(params, list(box["g"]))
+
+
+def _unflatten(tree, leaves):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+class _GatherLog:
+    """``dist.collectives`` as ``dist.zero`` calls it, with the shape of
+    every tensor its gathers return recorded."""
+
+    def __init__(self, collectives):
+        self.real, self.shapes = collectives, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.real, name)
+        if name not in ("broadcast", "all_gather"):
+            return fn
+
+        def logged(*args, **kw):
+            y = fn(*args, **kw)
+            self.shapes.append(tuple(y.shape))
+            return y
+
+        return logged
+
+
+def tp_train_steps(rank, runs, lr, ckpt_dir):
+    """For each (name, zero_stage, np_params, batch, config overrides) of
+    ``runs``: one step on (data=2, model=2) from the global params at the
+    config's microbatches; the metrics, the gathered params and first
+    moments, and at stage 3 the shapes ``dist.zero``'s gathers returned.
+    With ``ckpt_dir``, the last run's state is saved there from its shards."""
+    from repro_torch.dist import param_specs, zero
+
+    mesh = Mesh((2, 2), ("data", "model")).bind()
+    out = []
+    for name, stage, np_params, batch, kw in runs:
+        cfg = get_config(name).reduced().replace(zero_stage=stage, **kw)
+        model = build_model(cfg, device="cpu")
+        params = params_from_jax(np_params, cfg, device="cpu")
+        lay = zero_layouts(params, cfg, mesh)
+        opt = AdamW()
+        state = TrainState(shard_tree(params, lay.params),
+                           opt.init(shard_tree(params, lay.moments)))
+        shardings = TrainState(lay.params, AdamWState(NamedSharding(mesh, P()), lay.moments,
+                                                      lay.moments))
+        step = make_train_step(model.loss_fn, opt, constant(lr),
+                               microbatches=cfg.train_microbatches, grad_shardings=lay.grads,
+                               state_shardings=shardings)
+        log, real = _GatherLog(zero.collectives), zero.collectives
+        zero.collectives = log
         try:
-            value_and_grad(model.loss_fn, local, batch)
-        except NotImplementedError as e:
-            return str(e)
-    return None
+            state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        finally:
+            zero.collectives = real
+        local = shard_tree(params, param_specs(params, cfg, mesh))
+        out.append({"metrics": {k: float(v) for k, v in m.items()},
+                    "gathered": log.shapes,
+                    "local_shapes": tree_map(lambda t: tuple(t.shape), local),
+                    "stored_shapes": tree_map(lambda t: tuple(t.shape), state.params),
+                    "params": _np(gather_tree(state.params, lay.params)),
+                    "mu": _np(gather_tree(state.opt.mu, lay.moments))})
+    if ckpt_dir is not None:
+        CheckpointManager(ckpt_dir).save(1, state, shardings=shardings)
+        out[-1]["state"] = _np(TrainState(gather_tree(state.params, lay.params), AdamWState(
+            state.opt.step, gather_tree(state.opt.mu, lay.moments),
+            gather_tree(state.opt.nu, lay.moments))))
+    return out
+
+
+def restore_on_one(rank, directory, like):
+    """Restore the checkpoint in ``directory`` on one rank through
+    ``ckpt.reshard.load_resharded``, every leaf replicated on (data=1,
+    model=1): the step and the tree."""
+    from repro_torch.ckpt.reshard import load_resharded
+
+    mesh = Mesh((1, 1), ("data", "model")).bind()
+    like = tree_map(lambda s: torch.empty(s, dtype=torch.float32, device="meta"), like)
+    step_like = torch.empty((), dtype=torch.int32, device="meta")
+    like = TrainState(like["params"], AdamWState(step_like, like["mu"], like["nu"]))
+    rep = NamedSharding(mesh, P())
+    step, tree = load_resharded(CheckpointManager(directory), like,
+                                tree_map2(lambda *_: rep, like, like))
+    return step, _np(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -273,3 +484,28 @@ def card_tp_prefill(rank, cfg, tokens):
         launches = _util.launch_counts()
     return {"launches": launches, "last": last.float().cpu(),
             "wq_heads": int(local["layers"]["attn"]["wq"].shape[2])}
+
+
+def card_2d_step(rank, cfg, params, batch, lr):
+    """One step of ``cfg`` on (data=2, model=2), this rank on the card, from
+    the global ``params`` (CPU tensors) over the global ``batch``: the
+    metrics, the kernel launches and the gathered params (on the host)."""
+    from repro_torch.dist import rank_device
+    from repro_torch.kernels import _util
+
+    mesh = Mesh((2, 2), ("data", "model")).bind(rank_device("cuda", rank))
+    model = build_model(cfg, device=mesh.device)
+    lay = zero_layouts(params, cfg, mesh)
+    opt = AdamW()
+    state = TrainState(shard_tree(params, lay.params), opt.init(shard_tree(params, lay.moments)))
+    step = make_train_step(model.loss_fn, opt, constant(lr), microbatches=cfg.train_microbatches,
+                           grad_shardings=lay.grads,
+                           state_shardings=TrainState(lay.params, AdamWState(None, lay.moments,
+                                                                             lay.moments)))
+    _util.reset_launch_counts()
+    state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    return {"metrics": {k: float(m[k]) for k in ("loss", "grad_norm")},
+            "launches": _util.launch_counts(),
+            "device": state.params["embed"].device.type,
+            "params": tree_map(lambda t: t.cpu(), gather_tree(state.params, lay.params))}

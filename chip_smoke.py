@@ -205,8 +205,9 @@ Phases, in order; any failure exits non-zero before the final line:
    conjugate collectives in the backward and ZeRO-3 gathering a layer at a
    time: (a) gemma-2b, (b) olmoe-1b-7b (its 64 experts 32 a rank), each at
    full width in float32 compute with the config's ZeRO stage (3) and
-   microbatches, its depth cut by a printed reckoning of the bytes four
-   ranks hold, one step of 4 x 512 random tokens (numpy seed 13) against
+   microbatches, its depth at most ``TP_TRAIN_MAX_LAYERS`` (gemma-2b 10 of
+   18) and cut further by a printed reckoning of the bytes four ranks
+   hold, one step of 4 x 512 random tokens (numpy seed 13) against
    the one-process step on the card at the same depth over the whole batch,
    taken before the ranks start: the loss and grad norm within 1e-3, the
    params under (b)'s rule of phase 13; each rank's local state bytes, peak
@@ -214,9 +215,38 @@ Phases, in order; any failure exits non-zero before the final line:
    ZeRO-3 put ``data`` on the stacked leaves, a rank's CUDA context as
    measured beside the reckoning's, and the MoE's dropped assignments; the
    training path launches no kernel;
-15. a ``kernels`` line, one JSON line of per-kernel numbers (the flash
-   launches count phase 13's ranks'), and the final ``{"ok": true,
-   "device": ...}`` line.
+15. tensor parallelism for the other families and tensor-parallel replicas,
+   ranks sharing the card over gloo (every collective through host memory),
+   started by ``dist.RankGroup``; each leg's one-rank reference is taken on
+   the card first from the params its ranks then place (shared by CUDA IPC,
+   the parent's copy freed before the ranks run), after a printed
+   reckoning of the bytes the ranks hold: (a) zamba2-7b at full width and
+   ``FAMILY_LAYERS`` (39 of 81 layers) at tp 2 (``ssm_impl``/``attn_impl``
+   "pallas"): phase 7's 4 x 1000 forward, its logits every 50th position
+   within 0.1 of their max of the one-rank forward's, each rank's 39
+   ssm_scan (56 of the 112 heads) and 7 flash launches counted, then the prefill and 8 greedy ``decode_step``s; (b)
+   internvl2-76b at phase 8c's 4 of 80 layers, tp 2: ``loss_fn`` (within
+   1e-3) and the prefill with the 256-patch frontend (4 flash launches
+   each), 8 greedy steps, and phase 10's text requests through a dense
+   engine on the mesh; (c) whisper-base whole, tp 2, phase 8d's workload
+   (18 flash launches a call); (d) xlstm-1.3b whole, tp 2, the forward, the
+   prefill and 8 greedy steps, no kernel; (e) gemma-2b at full width served
+   by 2 replicas x tp 2 (``ClusterRouter(tp=2)``, four ranks) with
+   ``fail_replica(0)`` after 4 ticks, each replica rank's launch counts
+   read around the router's run (none: the engine's steps launch no hand
+   kernel), then ``python -m repro_torch.launch.serve --replicas 2 --tp 2
+   --requests 8``, which must exit 0.  Every prefill's last logits within 0.1 of their max of one
+   rank's; the token rule: the ranks' tokens equal one rank's (each leg's
+   static batch, phase 10's engine for (b) and (e)), but where the one-rank
+   row's top-2 margin at the first differing position lies within its
+   distance from the ranks' row there, the ranks' token one of its top two
+   (each flip printed); both ranks' tokens equal; a requeued stream keeps
+   the output it had.  Times, the bytes each call handed the collectives a
+   rank, each rank's peak, tok/s and TTFT printed;
+16. a ``kernels`` line, one JSON line of per-kernel numbers (the flash and
+   ssm_scan launches count phases 13 and 15's ranks', and list phase 15's
+   a leg and a rank at a time, ``launches_tp_ranks``), and the final
+   ``{"ok": true, "device": ...}`` line.
 
 Rates used for the bounds (NVIDIA H100 SXM data sheet): 3.35 TB/s HBM,
 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16 and fp16 dense on
@@ -297,11 +327,17 @@ MATMUL_SHAPES = ((2048, 2048, 2048), (4096, 4096, 4096), (300, 200, 100))
 # B, S, H, Hkv, hd (internvl2-76b's S is its 256 frontend rows and 256 of text)
 FLASH_MODEL_SHAPES = {"gemma-2b": (4, 1000, 8, 1, 256), "gemma-2b tp 2": (4, 1000, 4, 1, 256),
                       "zamba2-7b": (4, 1000, 32, 32, 112),
+                      "zamba2-7b tp 2": (4, 1000, 16, 16, 112),
                       "olmoe-1b-7b": (4, 1000, 16, 16, 128),
-                      "internvl2-76b": (2, 512, 64, 8, 128)}
-# the flash row's keys of its other shapes, beside gemma-2b's
+                      "internvl2-76b": (2, 512, 64, 8, 128),
+                      "internvl2-76b tp 2": (2, 512, 32, 4, 128),
+                      # whisper-base's decoder self attention over its 32-token prompt
+                      "whisper-base decoder": (4, 32, 8, 8, 64),
+                      "whisper-base decoder tp 2": (4, 32, 4, 4, 64)}
+# the flash row's keys of its other shapes, beside gemma-2b's (a "_tp2" key is
+# one tp 2 rank's call, phases 13 and 15)
 FLASH_SHAPE_SUFFIXES = ("_hd112", "_hd512", "_olmoe", "_internvl2", "_whisper_enc",
-                        "_whisper_cross", "_tp2")
+                        "_whisper_cross", "_whisper_dec", "_tp2")
 MEMBW_SHAPE = (65536, 512)  # 128 MiB of fp32: the probes' largest footprint
 # phase 4c: the paper's other suites, the kernels each registered variant must
 # launch (exactly these; the [torch] variants and the rest launch none)
@@ -351,6 +387,10 @@ CARD_BYTES = 80e9  # the H100's memory, for (b)'s reckoning where no card is vis
 TP_TRAIN_MESH = (2, 2)  # (data, model)
 TP_TRAIN_ARCHS = ("gemma-2b", "olmoe-1b-7b")  # (a), (b)
 TP_TRAIN_BATCH, TP_TRAIN_SEQ = 4, 512  # the global batch of the one step
+# the most layers (a) runs, cut for the script's time: 18 layers' step took
+# 53.8-92.2 s over gloo on an H100; an even depth keeps ZeRO-3's `data` on
+# the stacked leaves' layer dim (phase 13(b)'s odd depth puts it inside)
+TP_TRAIN_MAX_LAYERS = {"gemma-2b": 10}
 # a rank's CUDA context, outside the allocator's count: phase 14 measures it
 # (``rank_context_gb``) and prints it beside this; 0.786 GB a rank on an
 # H100 80GB HBM3 at 700 W, torch 2.11.0+cu128
@@ -790,7 +830,9 @@ def flash_checks(torch, dev, gen) -> dict:
     1000, 16, 128) and internvl2-76b's q (2, 512, 64, 128) over 8 KV heads;
     each against its plain version and timed beside it and SDPA.
     Whisper's non-causal shapes at hd 64: the encoder's 1500 frames and
-    the cross attention's 32 queries over them.  Also the head-flattened
+    the cross attention's 32 queries over them; and its decoder's causal
+    self attention over the 32-token prompt (one 128-key tile, masked), at
+    8 heads and a tp 2 rank's 4.  Also the head-flattened
     entry point: bf16 at gemma's prompt of 2048
     (bq 128, bk 1024) and fp32 at S 256 on the FP32-pipe kernel."""
     import torch.nn.functional as F
@@ -856,13 +898,13 @@ def flash_checks(torch, dev, gen) -> dict:
                     q4, k4, v4, is_causal=True), 5),
                 "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by}
 
-    def whisper(sq):
-        """whisper-base's non-causal shapes at hd 64 over 8 heads: q (4, sq,
-        8, 64) against k/v (4, 1500, 8, 64), the encoder's self attention
-        (sq 1500) or the decoder's cross attention (sq 32, under one 128-row
-        q tile); 1500 is not a multiple of the 128-key tile.  Against the
-        plain version, timed beside it and SDPA."""
-        b, h, hd = WHISPER_BATCH, 8, 64
+    def whisper(sq, h=8):
+        """whisper-base's non-causal shapes at hd 64 over ``h`` heads (8, or
+        a tp 2 rank's 4): q (4, sq, h, 64) against k/v (4, 1500, h, 64), the
+        encoder's self attention (sq 1500) or the decoder's cross attention
+        (sq 32, under one 128-row q tile); 1500 is not a multiple of the
+        128-key tile.  Against the plain version, timed beside it and SDPA."""
+        b, hd = WHISPER_BATCH, 64
         skv = WHISPER_FRAMES
         q = torch.randn((b, sq, h, hd), generator=gen, device=dev).bfloat16()
         k, v = (torch.randn((b, skv, h, hd), generator=gen, device=dev).bfloat16()
@@ -891,6 +933,8 @@ def flash_checks(torch, dev, gen) -> dict:
     print(f"check flash_attention at whisper-base's cross attention: {cross}", flush=True)
     for r in (enc, cross):
         r["tflops"] /= r["ms"]
+    dec = model_layout("whisper-base decoder")
+    print(f"check flash_attention at whisper-base's decoder self attention: {dec}", flush=True)
     hd512 = wide()
     print(f"check flash_attention past hd 256: {hd512}", flush=True)
     flat32 = check_flat(torch.float32, 256, 128, 256, 1e-4)
@@ -907,14 +951,26 @@ def flash_checks(torch, dev, gen) -> dict:
     tp2 = model_layout("gemma-2b tp 2")
     print(f"check flash_attention at a gemma-2b tp 2 rank's q (4, 1000, 4, 256) bf16: {tp2}",
           flush=True)
+    # phase 15's per-rank shapes: each tp 2 rank holds half the heads
+    rank = {"hd112_tp2": model_layout("zamba2-7b tp 2"),
+            "internvl2_tp2": model_layout("internvl2-76b tp 2"),
+            "whisper_enc_tp2": whisper(WHISPER_FRAMES, 4),
+            "whisper_cross_tp2": whisper(WHISPER_PROMPT, 4),
+            "whisper_dec_tp2": model_layout("whisper-base decoder tp 2")}
+    for r in rank["whisper_enc_tp2"], rank["whisper_cross_tp2"]:
+        r["tflops"] /= r["ms"]
+    print(f"check flash_attention at a tp 2 rank's shapes (zamba2-7b q (4, 1000, 16, 112), "
+          f"internvl2-76b q (2, 512, 32, 128) over 4 KV heads, whisper-base's at 4 heads, "
+          f"its decoder's causal q, k, v (4, 32, 4, 64)): "
+          f"{rank}", flush=True)
     row = {
         "shape": "q (4, 1000, 8, 256) bf16 causal, k/v (4, 1000, 1, 256): model layout, "
                  "native GQA",
         "tolerance": "bf16 rtol 2e-2, atol 2e-2 and each row's ||err|| / ||want|| within 1e-2 "
                      "of the fp32 plain output, at S 1000 (hd 256 over one KV head, hd 112, hd "
                      "128), at S 512 (hd 128, 64 heads over 8) and 2048, at hd 512 (S 2048, "
-                     "the wide kernel) and non-causal at hd 64 (Sq 1500 and 32 over 1500 "
-                     "keys); fp32 1e-4 (rows 1e-4) at S 256",
+                     "the wide kernel), non-causal at hd 64 (Sq 1500 and 32 over 1500 "
+                     "keys) and causal at hd 64, S 32; fp32 1e-4 (rows 1e-4) at S 256",
         "max_abs_err_bf16_s2048": flat2k["max_abs_err"],
         "row_rel_err_bf16_s2048": flat2k["row_rel_err"],
         "max_abs_err_fp32_s256": flat32["max_abs_err"],
@@ -925,7 +981,9 @@ def flash_checks(torch, dev, gen) -> dict:
         **{f"{k}_internvl2": v for k, v in internvl2.items()},
         **{f"{k}_whisper_enc": v for k, v in enc.items()},
         **{f"{k}_whisper_cross": v for k, v in cross.items()},
+        **{f"{k}_whisper_dec": v for k, v in dec.items()},
         **{f"{k}_tp2": v for k, v in tp2.items()},
+        **{f"{k}_{shape}": v for shape, r in rank.items() for k, v in r.items()},
     }
     print(f"check flash_attention at gemma-2b's q (4, 1000, 8, 256) bf16: "
           f"{ {k: v for k, v in row.items() if not k.endswith(FLASH_SHAPE_SUFFIXES)} }",
@@ -1090,7 +1148,25 @@ def ssm_checks(torch, dev, gen) -> dict:
     nbytes = 2 * u.numel() * u.element_size() + a.numel() * 4 + 2 * b.numel() * b.element_size()
     bound_ms, bound_by = bound(ssm_flops(chunk), nbytes, BF16_FLOPS)
     bound_512, bound_by_512 = bound(ssm_flops(512), nbytes, BF16_FLOPS)
+    # phase 15's per-rank call: a tp 2 rank's 56 of zamba2-7b's 112 heads
+    half = h // 2
+    ur, ar = u[:, :, :half].contiguous(), a[:, :, :half].contiguous()
+    want_r = ssm_plain(ref.ssm_scan_chunked_ref, ur.float(), ar, b.float(), c.float(), chunk)
+    rank = {"row_rel_err_tp2": check_rows(f"ssm_scan bf16 at a tp 2 rank's u {tuple(ur.shape)}",
+                                          ssm_scan_cuda(ur, ar, b, c, chunk=chunk), want_r,
+                                          SSM_ROW_RTOL)}
+    del want_r
+    flat_r = _util.flatten_ssm(ur, ar, b, c)
+    rank.update(
+        ms_tp2=time_ms(torch, lambda: ssm_scan_cuda(ur, ar, b, c, chunk=chunk), 10),
+        plain_ms_tp2=time_ms(torch, lambda: ref.ssm_scan_chunked_ref(*flat_r, chunk), 3),
+        shape_tp2=f"u {tuple(ur.shape)} bf16, a_log {tuple(ar.shape)}, b/c {tuple(b.shape)}, "
+                  "chunk 256 (a tp 2 rank's heads of zamba2-7b)")
+    rank["bound_ms_tp2"], rank["bound_by_tp2"] = bound(
+        ssm_flops(chunk) // 2, nbytes // 2 + b.numel() * b.element_size(), BF16_FLOPS)
+    print(f"check ssm_scan at a tp 2 rank's shape: {rank}", flush=True)
     return {
+        **rank,
         "shape": "u (4, 1024, 112, 64) bf16, a_log (4, 1024, 112) f32, b/c (4, 1024, 64) bf16, "
                  "chunk 256",
         "tolerance": f"bf16 rtol 2e-2, atol 2e-2 and each row's ||err|| / ||want|| within "
@@ -1705,11 +1781,12 @@ def counted(torch, fn) -> tuple:
     on the host clock between two synchronizes: (result, seconds, counts)."""
     from repro_torch.kernels import _util
 
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
     _util.reset_launch_counts()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - t0, _util.launch_counts()
 
 
@@ -2500,12 +2577,17 @@ def leg_timing(torch, cluster, sessions, wall) -> dict:
             "tok_latency_ms_p99": percentile(gaps, 99) * 1e3}
 
 
-def lane_logits(torch, model, params, feed, steps, dev):
+def lane_logits(torch, model, params, feed, steps, dev, mesh=None):
     """The logits row after ``feed`` (prefilled through ``decode_chunk``,
     SERVE_CHUNK tokens a call) and then ``steps`` fed one at a time through
     ``decode_step``, with the request in lane 0 of SERVE_SLOTS lanes (the
-    others padded), as an engine tick computes it."""
+    others padded), as an engine tick computes it; on a tensor-parallel
+    ``mesh`` the cache is this rank's part, as the engine places it."""
     cache = model.init_cache(SERVE_SLOTS, SERVE_MAX_LEN)
+    if mesh is not None:
+        from repro_torch.dist import cache_shardings, shard_tree
+
+        cache = shard_tree(cache, cache_shardings(cache, model.cfg, mesh))
     width = -(-len(feed) // SERVE_CHUNK) * SERVE_CHUNK
     toks = torch.zeros((SERVE_SLOTS, width), dtype=torch.int32)
     poss = torch.full((SERVE_SLOTS, width), SERVE_MAX_LEN, dtype=torch.int32)
@@ -3650,7 +3732,7 @@ def tp_train_layers(torch, conf, arch, free_bytes) -> tuple:
 
     budget = ZERO_FREE_SHARE * free_bytes
     full = dist_cfg({**conf, "arch": arch}).n_layers
-    layers = full
+    layers = min(full, TP_TRAIN_MAX_LAYERS.get(arch, full))
     while layers > 1:
         r = reckon(layers)
         if max(r["ranks_gb_est"], r["one_process_gb_est"]) * 1e9 <= budget:
@@ -3660,7 +3742,8 @@ def tp_train_layers(torch, conf, arch, free_bytes) -> tuple:
              "parent_reserved_gb": torch.cuda.memory_reserved() / 1e9}
             if torch.cuda.is_available() else {})
     return layers, {"free_gb": free_bytes / 1e9, **held, "budget_gb": budget / 1e9,
-                    **reckon(layers), "layers": layers, "of": full}
+                    **reckon(layers), "layers": layers, "of": full,
+                    "at_most": TP_TRAIN_MAX_LAYERS.get(arch, full)}
 
 
 def tp_train_batch(cfg) -> dict:
@@ -3881,6 +3964,537 @@ def tp_train_path(torch, dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: tensor parallelism for the other families, tensor-parallel replicas
+# ---------------------------------------------------------------------------
+FAMILY_TP = 2  # (a)-(d): ranks on the family's `model` mesh
+# (a)'s depth, cut for the script's time: zamba2-7b's 6-layer super-blocks
+# and its 3-layer tail, 6 super-blocks of its 13 (81 layers took 43-46 s
+# a leg on an H100 over gloo)
+FAMILY_LAYERS = {"zamba": 39}
+FAMILY_STEPS = {"zamba": 8, "vlm": VLM_STEPS, "whisper": WHISPER_STEPS, "xlstm": 8}
+FORWARD_STRIDE = 50  # (a), (d): the forward's logits compared every 50th position
+FAMILY_FREE_SHARE = 0.9  # of the card's free memory a leg's reckoning may plan to fill
+
+
+def family_cfg(conf, leg):
+    """Phase 15's config of ``leg``: zamba2-7b at ``FAMILY_LAYERS``,
+    internvl2-76b at phase 8c's depth, whisper-base and xlstm-1.3b, the
+    kernels on."""
+    from repro_torch.configs import get_config
+
+    name, kw = {"zamba": ("zamba2-7b", {"ssm_impl": "pallas", "attn_impl": "pallas"}),
+                "vlm": ("internvl2-76b", {"attn_impl": "pallas", "n_layers": VLM_LAYERS}),
+                "whisper": ("whisper-base", {"attn_impl": "pallas"}),
+                "xlstm": ("xlstm-1.3b", {})}[leg]
+    cfg = get_config(name)
+    if conf["reduced"]:
+        cfg = cfg.reduced()
+        kw.pop("n_layers", None)
+    elif leg in FAMILY_LAYERS:
+        kw["n_layers"] = FAMILY_LAYERS[leg]
+    return cfg.replace(**kw)
+
+
+def family_batch(torch, cfg, leg, gen, dev) -> dict:
+    """The leg's workload: phase 7's 4 x 1000 tokens (zamba, xlstm), phase
+    8c's frontend and 256 text tokens (vlm), phase 8d's frames and 32-token
+    prompts (whisper); tokens, targets and any frontend, in bf16."""
+    b, s = {"zamba": (LM_BATCH, LM_PROMPT), "xlstm": (LM_BATCH, LM_PROMPT),
+            "vlm": (VLM_BATCH, VLM_TEXT), "whisper": (WHISPER_BATCH, WHISPER_PROMPT)}[leg]
+    seq = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device=dev)
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    if leg in ("vlm", "whisper"):
+        n = cfg.frontend_len if leg == "vlm" else min(WHISPER_FRAMES, cfg.frontend_len)
+        batch["frontend"] = torch.randn((b, n, cfg.d_model), generator=gen,
+                                        device=dev).to(torch.bfloat16)
+    return batch
+
+
+def family_forms(torch, model, params, batch, leg, steps, dev, moved=None) -> dict:
+    """One leg's forms, the same on one rank and on the mesh: the forward's
+    logits every FORWARD_STRIDE positions (zamba, xlstm) or ``loss_fn``
+    (vlm, whisper), the prefill's last logits, and ``steps`` greedy
+    ``decode_step``s (tokens, rows); each call's launches and seconds, and,
+    given ``moved`` (a running count of the bytes handed to the
+    collectives), each call's bytes."""
+    from repro_torch.models import mamba, xlstm
+
+    out, cfg = {}, model.cfg
+    vocab = cfg.vocab_size  # past it the pad columns hold -1e30 (whisper-base)
+
+    def call(key, fn):
+        before = 0 if moved is None else moved["bytes"]
+        res, out[f"{key}_s"], out[f"{key}_launches"] = counted(torch, fn)
+        if moved is not None:
+            out[f"{key}_bytes"] = moved["bytes"] - before
+        return res
+
+    prompt = {k: v for k, v in batch.items() if k != "targets"}
+    start = batch["tokens"].shape[1] + (batch["frontend"].shape[1] if leg == "vlm" else 0)
+    if leg in ("zamba", "xlstm"):
+        fwd = mamba.zamba_forward if leg == "zamba" else xlstm.xlstm_forward
+        logits = call("forward", lambda: fwd(params, batch["tokens"], cfg))
+        out["forward_rows"] = logits[:, FORWARD_STRIDE - 1::FORWARD_STRIDE, :vocab].float().cpu()
+        del logits
+    else:
+        out["loss"] = call("loss", lambda: float(model.loss_fn(params, batch)))
+    last, cache = call("prefill", lambda: model.prefill(params, prompt, start + steps))
+    out["prefill_last"] = last[:, :vocab].float().cpu()
+    toks, rows = call("decode", lambda: greedy(torch, model, params, cache, last.argmax(-1),
+                                               start, steps, dev))
+    out["tokens"], out["rows"] = toks.cpu(), rows[..., :vocab].cpu()
+    return out
+
+
+def family_place(rank, conf, leg, params) -> dict:
+    """Phase 15, on each rank: this rank's shards of the parent's params (its
+    CUDA tensors, shared by CUDA IPC) placed by ``param_specs`` on a 2-rank
+    ``model`` mesh, kept for the leg's next command."""
+    import torch
+
+    from repro_torch.dist import param_specs, rank_state, shard_tree
+
+    mesh = rank_mesh((FAMILY_TP,), ("model",), conf)
+    cfg = family_cfg(conf, leg)
+    local = shard_tree(params, param_specs(params, cfg, mesh))
+    del params
+    rank_state().update(mesh=mesh, params=local)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    return {"param_bytes_local": tree_bytes(local)}
+
+
+def family_run(rank, conf, leg, batch, prompts) -> dict:
+    """Phase 15, on each rank: the leg's forms (``family_forms``) under the
+    mesh; for the VLM, phase 10's requests through a dense engine on it too;
+    this rank's peak memory and the bytes its collectives moved."""
+    import torch
+
+    from repro_torch.dist import activation_sharding, collectives, rank_state
+    from repro_torch.models import build_model
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    use_conf(conf)
+    st = rank_state()
+    mesh, params = st["mesh"], st["params"]
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    cfg = family_cfg(conf, leg)
+    model = build_model(cfg, device=dev)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    moved = {"bytes": 0}
+    real = {k: getattr(collectives, k) for k in ("all_reduce", "all_gather")}
+
+    def logged(fn):
+        def run(x, *a, **kw):  # each rank hands the collective x, through the host
+            moved["bytes"] += x.numel() * x.element_size()
+            return fn(x, *a, **kw)
+        return run
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    with torch.inference_mode(), activation_sharding(mesh):
+        family_forms(torch, model, params, {k: v[:1] for k, v in batch.items()}, leg, 1,
+                     dev)  # warm-up
+        for k, fn in real.items():
+            setattr(collectives, k, logged(fn))
+        try:
+            out.update(family_forms(torch, model, params, batch, leg, FAMILY_STEPS[leg], dev,
+                                    moved))
+        finally:
+            for k, fn in real.items():
+                setattr(collectives, k, fn)
+        if leg == "vlm":
+            eng = ServeEngine(model, None, EngineConfig(
+                n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK,
+                mesh=mesh))
+            eng.params = params  # placed already
+            sessions = [eng.submit(p, conf["new"]) for p in prompts]
+            t0 = time.perf_counter()
+            eng.run()
+            if on_card:
+                torch.cuda.synchronize(dev)
+            out["engine"] = {"tokens": [x.out for x in sessions],
+                             "finished": [x.finish_reason for x in sessions],
+                             "wall_s": time.perf_counter() - t0, **{
+                                 k: eng.summary()[k] for k in ("throughput_tok_s",
+                                                                "ttft_ms_p50",
+                                                                "tok_latency_ms_p50")}}
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev) if on_card else None
+    out["param_bytes_local"] = tree_bytes(params)
+    return out
+
+
+def token_rule(torch, name, got, want, got_rows, want_rows) -> list:
+    """Phase 15's token rule on a greedy batch: the ranks' tokens (B, steps)
+    equal one rank's, but where the one-rank logits row's top-2 margin at a
+    lane's first differing step lies within the distance between its row and
+    the ranks' there, the ranks' token one of its top two.  Each flip is
+    returned; anything else fails."""
+    flips = []
+    for lane in range(want.shape[0]):
+        diff = (got[lane] != want[lane]).nonzero()
+        if not len(diff):
+            continue
+        j = int(diff[0])
+        top = torch.topk(want_rows[j, lane], 2)
+        flip = {"lane": lane, "step": j, "want": int(want[lane, j]), "got": int(got[lane, j]),
+                "margin_tp1": float(top.values[0] - top.values[1]),
+                "top2_tp1": top.indices.tolist(),
+                "tp_vs_tp1_max_abs": float((got_rows[j, lane] - want_rows[j, lane]).abs().max())}
+        flips.append(flip)
+        if flip["got"] not in flip["top2_tp1"] or flip["margin_tp1"] > flip["tp_vs_tp1_max_abs"]:
+            raise AssertionError(f"{name}: tokens differ from one rank's past the token rule: "
+                                 f"{flip}")
+    return flips
+
+
+def family_reckoning(torch, cfg, params, dev) -> dict:
+    """The bytes the leg holds on the card while its ranks place their
+    shards: the parent's global params and each rank's shards (by
+    ``param_specs`` on an abstract 2-rank mesh) and CUDA context, against
+    the card's free memory."""
+    from repro_torch.dist import param_specs
+    from repro_torch.dist.sharding import tree_leaves
+    from repro_torch.launch.mesh import Mesh
+
+    mesh = Mesh((FAMILY_TP,), ("model",))
+    leaves = tree_leaves(params)
+    local = sum(t.numel() * t.element_size() // math.prod(
+        mesh.shape[a] for axes in sh.dim_axes(t.ndim) for a in axes)
+        for t, sh in zip(leaves, tree_leaves(param_specs(params, cfg, mesh))))
+    whole = sum(t.numel() * t.element_size() for t in leaves)
+    free = torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else CARD_BYTES
+    ranks = FAMILY_TP * (local + RANK_CONTEXT_BYTES)  # the parent's params are in use already
+    return {"params_gb": whole / 1e9, "local_gb_a_rank": local / 1e9,
+            "placing_gb": (whole + ranks) / 1e9, "free_gb": free / 1e9,
+            "fits": ranks < FAMILY_FREE_SHARE * free}
+
+
+def family_lane_rows(rank, conf, cases) -> list:
+    """Phase 15 (b), on each rank: the VLM's logits rows ``lane_logits``
+    gives on the mesh for each (prompt, fed tokens) of ``cases``."""
+    import torch
+
+    from repro_torch.dist import activation_sharding, rank_state
+    from repro_torch.models import build_model
+
+    use_conf(conf)
+    st = rank_state()
+    mesh = st["mesh"]
+    model = build_model(family_cfg(conf, "vlm"), device=mesh.device)
+    with torch.inference_mode(), activation_sharding(mesh):
+        return [lane_logits(torch, model, st["params"], feed, fed, mesh.device, mesh).cpu()
+                for feed, fed in cases]
+
+
+def engine_rule(torch, name, model, params, prompts, want, got, tp_rows) -> dict:
+    """The token rule for served streams: where a stream first differs from
+    the one-rank engine's, the one-rank row there (``lane_logits``, fed as
+    the engine fed it) must have the ranks' token in its top two and a top-2
+    margin within its distance from the ranks' row (``tp_rows(cases)``);
+    each flip is returned; anything else fails."""
+    cases, where = [], {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+            where[i] = j
+            cases.append((prompts[i], w[:j]))
+    if not cases:
+        return {}
+    rows = tp_rows(cases)
+    flips = {}
+    with torch.inference_mode():
+        for (i, j), row in zip(where.items(), rows):
+            one = lane_logits(torch, model, params, prompts[i], want[i][:j], model.device).cpu()
+            top = torch.topk(one, 2)
+            flips[i] = {"position": j, "want": want[i][j] if j < len(want[i]) else None,
+                        "got": got[i][j] if j < len(got[i]) else None,
+                        "margin_tp1": float(top.values[0] - top.values[1]),
+                        "top2_tp1": top.indices.tolist(),
+                        "tp_vs_tp1_max_abs": float((one - row.cpu().float()).abs().max())}
+    bad = {i: f for i, f in flips.items()
+           if f["got"] not in f["top2_tp1"] or f["margin_tp1"] > f["tp_vs_tp1_max_abs"]}
+    if bad:
+        raise AssertionError(f"{name}: streams differ from one rank's past the token rule: {bad}")
+    return flips
+
+
+def family_leg(torch, dev, conf, leg) -> list:
+    """Phase 15 (a)-(d): one family on a 2-rank ``model`` mesh sharing the
+    card over gloo, against one rank (see the module docstring).  The
+    one-rank forms are taken on the card first, from the params the ranks
+    then place (shared by CUDA IPC); the parent's copy is freed before the
+    ranks run (kept for the VLM's flip rows).  Returns each rank's launch
+    counts."""
+    from repro_torch.dist import RankGroup
+    from repro_torch.models import build_model, mamba
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    leg_start = time.perf_counter()
+    on_card = dev.type == "cuda"
+    cfg = family_cfg(conf, leg)
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    batch = family_batch(torch, cfg, leg, gen, dev)
+    reckoning = family_reckoning(torch, cfg, params, dev)
+    print(f"tp families {leg}: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, on 2 "
+          f"ranks; the reckoning: {json.dumps(reckoning)}", flush=True)
+    if not reckoning["fits"]:
+        raise AssertionError(f"tp families {leg}: the ranks' shards do not fit the card")
+    steps = FAMILY_STEPS[leg]
+    prompts = serve_prompts(cfg)[0] if leg == "vlm" else None
+    one_engine = None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        family_forms(torch, model, params, {k: v[:1] for k, v in batch.items()}, leg, 1, dev)
+        one = family_forms(torch, model, params, batch, leg, steps, dev)
+        if leg == "vlm":
+            eng = ServeEngine(model, params, EngineConfig(
+                n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK))
+            sessions = [eng.submit(p, SERVE_NEW) for p in prompts]
+            t0 = time.perf_counter()
+            eng.run()
+            if on_card:
+                torch.cuda.synchronize(dev)
+            one_engine = {"tokens": [x.out for x in sessions], "wall_s": time.perf_counter() - t0,
+                          **{k: eng.summary()[k] for k in ("throughput_tok_s", "ttft_ms_p50",
+                                                          "tok_latency_ms_p50")}}
+            del eng, sessions
+    one_peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+    host_batch = {k: v.cpu() for k, v in batch.items()}
+    with RankGroup(FAMILY_TP, device=dev.type, backend="gloo", timeout=DIST_TIMEOUT) as group:
+        t0 = time.perf_counter()
+        placed = group.call(family_place, conf, leg, params)
+        place_s = time.perf_counter() - t0
+        if leg != "vlm":
+            del params
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.ipc_collect()
+        ranks = group.call(family_run, conf, leg, host_batch, prompts)
+        flips = token_rule(torch, f"tp families {leg}", ranks[0]["tokens"], one["tokens"],
+                           ranks[0]["rows"], one["rows"])
+        engine = None
+        if leg == "vlm":
+            legs = [r["engine"] for r in ranks]
+            if any(x["tokens"] != legs[0]["tokens"] for x in legs):
+                raise AssertionError("tp families vlm: the ranks served different tokens")
+            if any(f != "max_new_tokens" for x in legs for f in x["finished"]):
+                raise AssertionError("tp families vlm: not every request finished")
+            engine = {k: v for k, v in legs[0].items() if k not in ("tokens", "finished")}
+            engine["one_rank"] = {k: v for k, v in one_engine.items() if k != "tokens"}
+            engine["flips"] = engine_rule(
+                torch, "tp families vlm engine", model, params, prompts, one_engine["tokens"],
+                legs[0]["tokens"], lambda cases: group.call(family_lane_rows, conf, cases)[0])
+            del params
+    n_attn = 0
+    if leg == "zamba":
+        n_super, _, tail = mamba._zamba_counts(cfg)
+        n_attn = n_super + (1 if tail else 0)
+    want = {
+        "zamba": {"forward": {"ssm_scan": cfg.n_layers, "flash_attention": n_attn},
+                  "prefill": {"flash_attention": n_attn}, "decode": {}},
+        "vlm": {"loss": {"flash_attention": cfg.n_layers},
+                "prefill": {"flash_attention": cfg.n_layers}, "decode": {}},
+        "whisper": {"loss": {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_dec_layers},
+                    "prefill": {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_dec_layers},
+                    "decode": {}},
+        "xlstm": {"forward": {}, "prefill": {}, "decode": {}}}[leg]
+    per_rank = []
+    res = {"place_s": place_s, "one_rank_peak_gb": one_peak,
+           "param_gb_local": [p["param_bytes_local"] / 1e9 for p in placed]}
+    for i, r in enumerate(ranks):
+        got = {k: r[f"{k}_launches"] for k in want}
+        if got != want or {k: one[f"{k}_launches"] for k in want} != want:
+            raise AssertionError(f"tp families {leg}: rank {i} launched {got} (one rank "
+                                 f"{ {k: one[f'{k}_launches'] for k in want} }), expected {want}")
+        per_rank.append({})
+        for c in got.values():
+            add_counts(per_rank[-1], c)
+        if any(not torch.equal(r["tokens"], ranks[0]["tokens"]) for r in ranks):
+            raise AssertionError(f"tp families {leg}: the ranks sampled different tokens")
+    agree = {"prefill_last_rel": [rel_max(r["prefill_last"], one["prefill_last"])
+                                  for r in ranks]}
+    if "forward_rows" in one:
+        agree["forward_rel"] = [rel_max(r["forward_rows"], one["forward_rows"]) for r in ranks]
+    else:
+        agree["loss_rel"] = [abs(r["loss"] - one["loss"]) / abs(one["loss"]) for r in ranks]
+    for k in ("forward", "loss", "prefill", "decode"):
+        if f"{k}_s" in one:
+            res[f"{k}_s"] = {"one_rank": one[f"{k}_s"], "ranks": [r[f"{k}_s"] for r in ranks]}
+            res[f"{k}_host_mb_a_rank"] = ranks[0][f"{k}_bytes"] / 1e6
+    res.update(agree, flips=flips, launches_a_rank=want,
+               decode_step_host_mb_a_rank=ranks[0]["decode_bytes"] / steps / 1e6,
+               max_memory_allocated_gb=[None if r["max_memory_allocated"] is None
+                                        else r["max_memory_allocated"] / 1e9 for r in ranks],
+               engine=engine, leg_s=time.perf_counter() - leg_start)
+    print(f"tp families {leg} at tp {FAMILY_TP} (two ranks on one card, gloo through host "
+          f"memory): " + json.dumps(res), flush=True)
+    if not all(torch.isfinite(r["prefill_last"]).all() and torch.isfinite(r["rows"]).all()
+               for r in ranks):
+        raise AssertionError(f"tp families {leg}: non-finite outputs")
+    if max(max(v) for k, v in agree.items() if k != "loss_rel") > 0.1 or max(
+            agree.get("loss_rel", [0])) > LOSS_RTOL:
+        raise AssertionError(f"tp families {leg}: differs from one rank: {agree}")
+    return per_rank
+
+
+def rank_reset_counts(rank) -> None:
+    """Set a replica rank's kernel launch counts to 0."""
+    from repro_torch.kernels import _util
+
+    _util.reset_launch_counts()
+
+
+def rank_counts(rank) -> dict:
+    """A replica rank's kernel launch counts."""
+    from repro_torch.kernels import _util
+
+    return _util.launch_counts()
+
+
+def rank_peak(rank) -> float:
+    """A replica rank's peak memory (GB) on its device."""
+    import torch
+
+    from repro_torch.dist.launcher import this_device
+
+    dev = this_device()
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+
+
+def replica_lane_rows(rank, conf, cases) -> list:
+    """Phase 15 (e), on each rank of a replica: ``lane_logits`` on the
+    replica's engine (its model, placed params and mesh) for each (prompt,
+    fed tokens) of ``cases``."""
+    import torch
+
+    from repro_torch.dist import activation_sharding, rank_state
+
+    use_conf(conf)
+    eng = rank_state()["engine"]
+    with torch.inference_mode(), activation_sharding(eng.mesh):
+        return [lane_logits(torch, eng.model, eng.params, feed, fed, eng.device, eng.mesh).cpu()
+                for feed, fed in cases]
+
+
+def tp_cluster_leg(torch, dev, conf, want_tokens) -> list:
+    """Phase 15 (e): gemma-2b at full width served by 2 replicas x tp 2,
+    four ranks on the card, then the launcher's ``--replicas 2 --tp 2``
+    (see the module docstring).  ``want_tokens``: phase 10's dense
+    engine's.  Returns each replica rank's launch counts over the router's
+    run: none, as the engine's steps (``decode_chunk``) launch no hand
+    kernel (phase 10)."""
+    from repro_torch.serve import ClusterConfig, ClusterRouter, EngineConfig
+
+    leg_start = time.perf_counter()
+    cfg, model, params = gemma_full(torch, dev) if not conf["reduced"] else reduced_gemma(
+        torch, dev, conf)
+    prompts, _ = serve_prompts(cfg)
+    cluster = ClusterRouter(model, params, ClusterConfig(
+        engine=EngineConfig(n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                            prefill_chunk=SERVE_CHUNK),
+        n_replicas=2, tp=2, devices=(dev,) * 4))
+    try:
+        t0 = time.perf_counter()
+        sessions = [cluster.submit(p, SERVE_NEW) for p in prompts]
+        start_s = time.perf_counter() - t0  # the ranks start at the first submit
+        groups = [r.engine.group for r in cluster.replicas]
+        for g in groups:
+            g.call(rank_reset_counts)
+        t0 = time.perf_counter()
+        for _ in range(CLUSTER_FAIL_AFTER):
+            cluster.step()
+        before = {x.rid: list(x.out) for x in sessions}
+        drained = cluster.fail_replica(0)
+        cluster.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = [x.out for x in sessions]
+        launches = [c for g in groups for c in g.call(rank_counts)]
+        if any(launches):
+            raise AssertionError(f"tp cluster: the replicas' ranks launched {launches}; the "
+                                 f"engine's steps launch no hand kernel")
+        if any(x.finish_reason != "max_new_tokens" for x in sessions) or not drained:
+            raise AssertionError(f"tp cluster: {[x.finish_reason for x in sessions]}, "
+                                 f"{len(drained)} drained")
+        resumed = [x for x in drained if before[x.rid]]
+        if any(x.out[:len(before[x.rid])] != before[x.rid] for x in drained):
+            raise AssertionError("tp cluster: a requeued stream lost its output")
+        flips = engine_rule(torch, "tp cluster", model, params, prompts, want_tokens, got,
+                            lambda cases: cluster.replicas[1].engine.group.call(
+                                replica_lane_rows, conf, cases)[0])
+        res = {"ranks_start_s": start_s, **leg_timing(torch, cluster, sessions, wall),
+               "requests_per_replica": [r["requests"] for r in cluster.summary()["per_replica"]],
+               "drained": len(drained), "drained_mid_stream": len(resumed),
+               "requeued_tokens": cluster.metrics.requeued_tokens,
+               "identity": "identical" if not flips else "near-tie flips", "flips": flips,
+               "launches_a_rank": launches,
+               "peak_gb_a_rank": [p for r in cluster.replicas
+                                  for p in r.engine.group.call(rank_peak)]}
+    finally:
+        cluster.close()
+    print("tp cluster: gemma-2b, 2 replicas x tp 2 (four ranks on one card, gloo through host "
+          "memory), fail_replica(0) after 4 ticks: " + json.dumps(res), flush=True)
+    del cluster, params, model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    argv = ["--arch", conf["arch"], "--replicas", "2", "--tp", "2", "--requests", "8",
+            "--prompt-len", "64", "--max-new", "16", "--slots", "4", "--max-len", "256",
+            "--prefill-chunk", "64"] + (["--reduced", "--device", "cpu"] if conf["reduced"]
+                                        else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                          cwd=ROOT, capture_output=True, text=True, timeout=DIST_TIMEOUT,
+                          env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    for ln in proc.stdout.splitlines():
+        print(f"tp cluster launcher: {ln}", flush=True)
+    print(f"tp cluster launcher: python -m repro_torch.launch.serve {' '.join(argv)}: exit "
+          f"{proc.returncode} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if proc.returncode != 0 or "served 8/8" not in proc.stdout:
+        raise AssertionError(f"tp cluster launcher: exit {proc.returncode}: {proc.stderr[-4000:]}")
+    print(f"tp cluster: leg {time.perf_counter() - leg_start:.1f} s", flush=True)
+    return launches
+
+
+def reduced_gemma(torch, dev, conf) -> tuple:
+    """gemma-2b ``reduced()`` with the flash kernel (the CPU rehearsal)."""
+    from repro_torch.models import build_model
+
+    cfg = dist_cfg(conf, attn_impl="pallas")
+    model = build_model(cfg, device=dev)
+    return cfg, model, model.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def tp_families_path(torch, dev, want_tokens) -> tuple:
+    """Phase 15 (see the module docstring).  Returns the ranks' launch
+    counts, summed, and each leg's, a rank at a time."""
+    phase_start = time.perf_counter()
+    conf = dist_conf(dev)
+    by_leg = {}
+    for leg in ("zamba", "vlm", "whisper", "xlstm"):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        by_leg[leg] = family_leg(torch, dev, conf, leg)
+    by_leg["cluster"] = tp_cluster_leg(torch, dev, conf, want_tokens)
+    counts = {}
+    for ranks in by_leg.values():
+        for c in ranks:
+            add_counts(counts, c)
+    print(f"tp families: launches a rank {json.dumps(by_leg)}; phase "
+          f"{time.perf_counter() - phase_start:.1f} s", flush=True)
+    return counts, by_leg
+
+
 def tp1_reference(torch, dev, cfg, model, params, tokens) -> dict:
     """Phase 13's one-rank reference, taken while phase 10's params are
     alive: the 4 x 1000 flash prefill's last logits, on the host."""
@@ -3976,6 +4590,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()  # the four ranks of phase 14 share the card
     add_counts(counts, tp_train_path(torch, dev))
+    gc.collect()
+    torch.cuda.empty_cache()  # phase 15's ranks share the card
+    tp_counts, tp_by_leg = tp_families_path(torch, dev, tp1["tokens"])
+    add_counts(counts, tp_counts)
+    for name in ("flash_attention", "ssm_scan"):  # phase 15's, a rank at a time
+        rows[name]["launches_tp_ranks"] = {leg: [c.get(name, 0) for c in ranks]
+                                           for leg, ranks in tp_by_leg.items()}
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print("kernels: " + " ".join(KERNELS))
@@ -3991,7 +4612,8 @@ def main() -> int:
         }
         entry.update({k: v for k, v in r.items()
                       if k in ("latency_bound_ms", "sm_clock_mhz", "tflops", "row_rel_err", "sweep_256mib",
-                               "transpose_ms", "ns_per_op", "ssm_routes", "ms_passes")
+                               "transpose_ms", "ns_per_op", "ssm_routes", "ms_passes",
+                               "launches_tp_ranks")
                       or k.endswith((*FLASH_SHAPE_SUFFIXES, "_4096", "_chunk512", "_fp16"))})
         line.append(entry)
     print(json.dumps({"kernels": line}))

@@ -3,18 +3,18 @@
 Port of ``repro.bench.suites.serving_scaled``, with its record names and
 grids.  Where ``serving`` measures one engine, this suite drives
 :class:`~repro_torch.serve.cluster.ClusterRouter` across a tensor-parallel ×
-data-parallel grid: ``tp`` would shard each replica over ``tp`` devices,
+data-parallel grid: ``tp`` shards each replica over ``tp`` devices,
 ``replicas`` fans requests out data-parallel, and every sweep point reports
 the pooled :class:`~repro_torch.serve.metrics.ClusterMetrics` rows (TTFT,
 p95 inter-token latency, throughput, slot-weighted occupancy) with ``x`` set
 to the point's device count — the scale-out curve.
 
 Points whose ``tp`` exceeds the visible device count are skipped, as the
-reference skips them; a ``tp > 1`` point that fits raises, since
-tensor-parallel replicas need a process group per replica under one router
-(ROADMAP.md §1 item 11b).  A ``failover`` contrast point kills one of two replicas
-mid-run and serves the drained sessions to completion on the survivor — its
-``requeued_sessions`` metric is the resilience headline.  Replicas on one
+reference skips them; a ``tp > 1`` point that fits runs each replica as a
+group of ``tp`` ranks, one a card, over NCCL.  A ``failover`` contrast point
+kills one of two replicas mid-run and serves the drained sessions to
+completion on the survivor — its ``requeued_sessions`` metric is the
+resilience headline.  Replicas on one
 card step one after another, so on one card the ``replicas`` axis measures
 the router's overhead, not a scale-out.  On a CPU device
 ``serving_scaled[cuda]`` gives one ``serving_scaled_skipped`` row.
@@ -122,6 +122,7 @@ def bench_serving_scaled(tps=(1,), replicas=(1, 2), n_slots=2, prompt_len=8,
                 recs.extend(cluster.to_records(
                     "serving_scaled", prefix, x=devices_used
                 ))
+                cluster.close()
     if failover and min(tps) <= n_dev:
         cluster = _drive_cluster(
             cfg, model, params, backend=backend, tp=min(tps), n_replicas=2,
@@ -134,4 +135,5 @@ def bench_serving_scaled(tps=(1,), replicas=(1, 2), n_slots=2, prompt_len=8,
             "serving_scaled", "serving_scaled_failover",
             x=min(min(tps) * 2, n_dev),
         ))
+        cluster.close()
     return recs

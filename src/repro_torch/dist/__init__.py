@@ -11,12 +11,13 @@ Port of ``repro.dist``, SPMD: one process per rank, each holding its shard.
                        with its conjugate in the backward
 - ``data_parallel``    means over the global batch on the batch axes
 - ``collectives``      the collectives those imply, over one mesh axis
-- ``launcher``         ``run_ranks``: a function on N local ranks
+- ``launcher``         ``run_ranks``: a function on N local ranks;
+                       ``RankGroup``: N ranks kept between calls
 
 The reference's ``_compat`` (a shim for JAX versions) has no twin.
 """
 from .compress import dequantize_int8, psum_compressed, quantize_int8
-from .launcher import choose_backend, rank_device, run_ranks
+from .launcher import RankGroup, choose_backend, rank_device, rank_state, run_ranks
 from .pipeline import gpipe_apply
 from .sharding import (
     NamedSharding,
@@ -39,6 +40,7 @@ __all__ = [
     "NamedSharding",
     "P",
     "PartitionSpec",
+    "RankGroup",
     "ZeroLayouts",
     "activation_sharding",
     "batch_shardings",
@@ -53,6 +55,7 @@ __all__ = [
     "psum_compressed",
     "quantize_int8",
     "rank_device",
+    "rank_state",
     "run_ranks",
     "shard_act",
     "shard_params",

@@ -1,5 +1,5 @@
 """Megatron's tensor parallelism on the ``model`` axis of the current mesh,
-for the transformer decoder's params placed by ``param_specs``.
+for every family's params placed by ``param_specs``.
 
 Each helper decides from the global dim the rule sharded (``n_heads``,
 ``d_ff``, ``padded_vocab``...) by the rule's own divisibility guard, so a dim
@@ -10,13 +10,16 @@ runs the model unchanged.
 Under autograd each collective has Megatron's conjugate in the backward:
 :func:`reduce` (a row-parallel exit, "g") sums forward and passes the
 gradient through; :func:`copy` (a column-parallel entry, "f") passes forward
-and sums the gradient; :func:`gather_last` gathers forward and keeps this
+and sums the gradient; :func:`gather` gathers forward and keeps this
 rank's slice of the gradient.  What holds them right: on every rank a
 replicated activation carries the whole gradient, so each replicated leaf's
 gradient is the one-device gradient and each sharded leaf's is its slice.
 A replicated tensor read only in part on a rank (whole KV heads read by the
-local query heads, a bias sliced to the local heads) takes its own
-:func:`copy` before the partial read.
+local query heads, a bias sliced to the local heads, a Mamba2 layer's whole
+leaves cut to the local heads) takes its own :func:`copy` before the partial
+read.  A sum over a split dim that every rank reads whole (a norm over the
+split channels) is :func:`sum_split`: summed forward, and its gradient
+summed back to each rank's partial.
 """
 from __future__ import annotations
 
@@ -55,15 +58,6 @@ def local_range(dim: int) -> tuple:
     return i * (dim // n), (i + 1) * (dim // n)
 
 
-def refuse(what: str) -> None:
-    """Raise before any collective where ``what``, which has no
-    tensor-parallel forward, would run on a ``model`` axis > 1."""
-    if _tp_mesh() is not None:
-        raise NotImplementedError(
-            f"{what} has no tensor-parallel forward: its params would be sharded while it "
-            "computes as if whole; a `model` axis > 1 waits (ROADMAP.md §1 item 11b)")
-
-
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, mesh):
@@ -85,15 +79,15 @@ class _Copy(torch.autograd.Function):
         return collectives.all_reduce(g, ctx.mesh, "model"), None
 
 
-class _GatherLast(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, mesh):
-        ctx.lo, ctx.n = mesh.index("model") * y.shape[-1], y.shape[-1]
-        return collectives.all_gather(y, mesh, "model", dim=-1)
+    def forward(ctx, y, mesh, dim):
+        ctx.dim, ctx.lo, ctx.n = dim, mesh.index("model") * y.shape[dim], y.shape[dim]
+        return collectives.all_gather(y, mesh, "model", dim=dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(-1, ctx.lo, ctx.n), None
+        return g.narrow(ctx.dim, ctx.lo, ctx.n), None, None
 
 
 def reduce(y: torch.Tensor, dim: int) -> torch.Tensor:
@@ -114,13 +108,22 @@ def copy(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _Copy.apply(x, _tp_mesh())
 
 
-def gather_last(y: torch.Tensor, dim: int) -> torch.Tensor:
-    """The ``model`` ranks' last-dim slices of ``y`` gathered, when that dim
-    (global size ``dim``) is sharded; the gradient keeps this rank's slice
-    (every rank holds the same gradient of the gathered tensor)."""
-    if not sharded(dim):
+def gather(y: torch.Tensor, size: int, dim: int) -> torch.Tensor:
+    """The ``model`` ranks' slices of ``y`` on ``dim`` gathered, when that
+    dim (global size ``size``) is sharded; the gradient keeps this rank's
+    slice (every rank holds the same gradient of the gathered tensor)."""
+    if not sharded(size):
         return y
-    return _GatherLast.apply(y, _tp_mesh())
+    return _Gather.apply(y, _tp_mesh(), dim % y.ndim)
+
+
+def sum_split(partial: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over the ``model`` ranks of ``partial``, this rank's sum over
+    its part of a dim of global size ``dim``, where every rank then reads
+    the whole sum in its own part of the computation: ``copy(reduce(..))``.
+    The reduce alone would hand each partial only this rank's share of the
+    sum's gradient; the copy sums the shares first."""
+    return copy(reduce(partial, dim), dim)
 
 
 def kv_heads_for_local_q(n_heads: int, n_kv_heads: int, kv_local: int) -> Optional[object]:

@@ -16,12 +16,18 @@ Paged KV + shared prefix:
         --requests 8 --slots 6 --page-size 16 --n-pages 48 --shared-prefix 12
 
 Cluster scale-out — data-parallel replicas behind one router (on one card
-they share the model's params and step one after another; tensor-parallel
-replicas, ``--tp > 1``, need a process group per replica under one router,
-ROADMAP.md §1 item 11b, and exit with its message):
+they share the model's params and step one after another):
 
     python -m repro_torch.launch.serve --arch gemma-2b --reduced \
         --requests 12 --replicas 2 --router least_loaded
+
+Tensor-parallel replicas — each replica a group of ``--tp`` ranks, one
+process each, on its own 1-D ``model`` mesh under the one router.  Where
+the cards are fewer than ``--tp`` the ranks share them (over gloo; on one
+card, 2 replicas × tp 2 are four ranks on it):
+
+    python -m repro_torch.launch.serve --arch gemma-2b --requests 8 \
+        --replicas 2 --tp 2
 
 Chaos drill — seeded fault schedule against a health-monitored cluster;
 deadlines bound per-request latency:
@@ -58,6 +64,19 @@ from repro_torch.serve import (
 )
 
 
+def rank_pool(dev: torch.device, replicas: int, tp: int) -> list:
+    """The devices the cluster places its replicas on: the CPU, one entry a
+    rank where ``tp > 1``; on the card the visible cards, repeated so that
+    every rank has one where ``tp`` exceeds them (the ranks then share the
+    cards)."""
+    if dev.type == "cpu":
+        return [dev] * (replicas * tp if tp > 1 else 1)
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if tp <= len(cards):
+        return cards
+    return [cards[i % len(cards)] for i in range(replicas * tp)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -90,8 +109,8 @@ def main(argv=None):
                     help="data-parallel engine replicas behind one router "
                          "(>1 selects the ClusterRouter path)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree per replica (>1 selects the "
-                         "ClusterRouter path; only 1 runs in the port so far)")
+                    help="tensor-parallel degree per replica: ranks per replica, one "
+                         "process each (>1 selects the ClusterRouter path)")
     ap.add_argument("--router", default="least_loaded",
                     help="replica placement policy (cluster path only): any "
                          "built-in or register_router()-registered name")
@@ -130,10 +149,12 @@ def main(argv=None):
             f"{cfg.max_useful_tp()} (n_heads={cfg.n_heads}, "
             f"n_kv_heads={cfg.n_kv_heads}); extra devices stay replicated"
         )
+    pool = None
     if clustered:  # the cluster's placement errors, before the weights are made
+        pool = rank_pool(dev, args.replicas, args.tp)
         try:
-            replica_meshes(args.replicas, args.tp, [dev] if dev.type == "cpu" else None)
-        except (ValueError, NotImplementedError) as e:
+            replica_meshes(args.replicas, args.tp, pool)
+        except ValueError as e:
             raise SystemExit(str(e)) from None
 
     model = build_model(cfg, device=dev)
@@ -154,7 +175,7 @@ def main(argv=None):
         if clustered:
             engine = ClusterRouter(model, params, ClusterConfig(
                 engine=engine_cfg, n_replicas=args.replicas, tp=args.tp,
-                router=args.router,
+                router=args.router, devices=tuple(pool),
                 health=HealthConfig() if args.health else None))
         else:
             engine = ServeEngine(model, params, engine_cfg)
@@ -179,15 +200,19 @@ def main(argv=None):
     except UnsupportedFamilyError as e:  # cluster replicas build lazily here
         raise SystemExit(str(e)) from None
     injector = None
-    if args.chaos:
-        plan = FaultPlan.random(
-            args.chaos_seed, n_faults=args.chaos_faults,
-            n_replicas=args.replicas if clustered else 1)
-        injector = FaultInjector(plan, engine)
-        finished = injector.run()
-    else:
-        finished = engine.run()
-    s = engine.summary()
+    try:
+        if args.chaos:
+            plan = FaultPlan.random(
+                args.chaos_seed, n_faults=args.chaos_faults,
+                n_replicas=args.replicas if clustered else 1)
+            injector = FaultInjector(plan, engine)
+            finished = injector.run()
+        else:
+            finished = engine.run()
+        s = engine.summary()
+    finally:
+        if clustered:
+            engine.close()
     if clustered:
         per = s["per_replica"]
         print(

@@ -22,15 +22,17 @@ paged fields ``None``, as in the reference, so the serving engine refuses
 them.
 The reference's ``cache_shardings``/``paged_cache_shardings`` fields are
 ``dist.cache_shardings``/``paged_cache_shardings`` of the family's config,
-which the serving engine calls.  The ssm, hybrid and encoder-decoder
-families have no tensor-parallel forward: their ``loss_fn`` refuses a
-``model`` axis > 1 and takes ZeRO-3's stored params whole (:func:`_whole`);
-the serving engine refuses them on a mesh.
+which the serving engine calls.  Every family computes on a ``model`` axis
+> 1 (``dist.activation_sharding``, params placed by ``dist.param_specs``);
+its ``prefill`` returns this rank's part of the cache as the rule lays it,
+and ``decode_step`` takes it so.  Under ZeRO-3 the ssm, hybrid and
+encoder-decoder families' ``loss_fn`` gathers the stored params whole over
+``data`` before the forward, keeping the ``model`` shards (:func:`_whole`);
+the decoder families gather a layer at a time inside their blocks.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
 from typing import Callable, Optional
 
 import torch
@@ -158,13 +160,13 @@ def _check_generator(gen: torch.Generator, device: torch.device) -> None:
         raise ValueError(f"generator on {gen.device} for a model on {device}")
 
 
-def _whole(what: str, fn: Callable) -> Callable:
-    """``loss_fn(params, batch)`` of a family with no tensor-parallel
-    forward, as the training step calls it: it refuses a ``model`` axis > 1 before any collective, and takes ZeRO-3's
-    stored params gathered whole (``dist.zero.whole_tree``)."""
+def _whole(fn: Callable) -> Callable:
+    """``loss_fn(params, batch)`` taking ZeRO-3's stored params gathered
+    whole over ``data`` (``dist.zero.whole_tree``: each keeps its ``model``
+    shard) before the forward, for the families whose blocks do not gather
+    a layer at a time."""
 
     def run(params, batch):
-        tp.refuse(what)
         return fn(zero.whole_tree(params), batch)
 
     return run
@@ -175,7 +177,7 @@ def _xlstm_model(cfg: ModelConfig, device: torch.device) -> ModelApi:
         _check_generator(gen, device)
         return xlstm.xlstm_init(gen, cfg)
 
-    @partial(_whole, "the xLSTM")
+    @_whole
     def loss_fn(params, batch):
         return xlstm.xlstm_loss(params, batch, cfg)
 
@@ -200,7 +202,7 @@ def _hybrid_model(cfg: ModelConfig, device: torch.device) -> ModelApi:
         _check_generator(gen, device)
         return mamba.zamba_init(gen, cfg)
 
-    @partial(_whole, "the Mamba2 hybrid")
+    @_whole
     def loss_fn(params, batch):
         return mamba.zamba_loss(params, batch, cfg)
 
@@ -226,7 +228,7 @@ def _encdec_model(cfg: ModelConfig, device: torch.device) -> ModelApi:
         _check_generator(gen, device)
         return encdec.encdec_init(gen, cfg)
 
-    @partial(_whole, "the encoder-decoder")
+    @_whole
     def loss_fn(params, batch):
         return encdec.encdec_loss(params, batch, cfg)
 
@@ -255,7 +257,10 @@ def _zamba_prefill(params, tokens, cfg, max_len):
     Returns (last_logits (B,V), cache) with KV length ``max_len`` >= S: each
     shared-attention application's (k, v), and each Mamba2 layer's final SSM
     state (from the plain stateful scan, as in the reference) and last W-1
-    conv inputs, written straight into a zeroed cache.
+    conv inputs, written straight into a zeroed cache.  Under a
+    tensor-parallel mesh the cache is laid out by the rule: this rank's KV
+    heads where the ``model`` axis divides them, the SSM and conv state whole
+    (each layer's local heads' final state and conv inputs gathered once).
     """
     x = transformer.embed_tokens(params, tokens, cfg)
     x0 = x
@@ -263,17 +268,20 @@ def _zamba_prefill(params, tokens, cfg, max_len):
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens does not fit a cache of {max_len}")
     positions = token_positions(b, s, x.device)
-    cache = mamba.zamba_init_cache(cfg, b, max_len, _cache_dtype(cfg), x.device)
+    lo, hi = tp.local_range(cfg.n_kv_heads)  # this rank's KV heads
+    cache = mamba.zamba_init_cache(cfg.replace(n_kv_heads=hi - lo), b, max_len,
+                                   _cache_dtype(cfg), x.device)
     sp = params["shared_attn"]
     width = cfg.ssm_conv_width - 1
+    d_in, _, _ = mamba.mamba_dims(cfg)
 
     def attn_prefill(x, slot):
         xin = rmsnorm(sp["norm"], torch.cat([x, x0], dim=-1), cfg.norm_eps)
         q, k, v = attn.qkv_proj(sp["attn"], xin, cfg)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        o = attn.attention_impl(cfg)(q, k, v, causal=True)
-        x = x + attn.out_proj(sp["attn"], o, x.dtype)
+        o = attn.attention_impl(cfg)(q, attn.local_kv(k, cfg), attn.local_kv(v, cfg), causal=True)
+        x = x + tp.reduce(attn.out_proj(sp["attn"], o, x.dtype), cfg.n_heads)
         cache["k"][slot, :, :s] = k
         cache["v"][slot, :, :s] = v
         return x + mlps.mlp(sp["mlp"], rmsnorm(sp["mlp_norm"], x, cfg.norm_eps), cfg)
@@ -283,8 +291,8 @@ def _zamba_prefill(params, tokens, cfg, max_len):
         y, h = mamba.mamba_forward(lp, xin, cfg, return_state=True)
         # conv state = the last W-1 conv inputs (only those rows are projected)
         tail_in = xin[:, -width:]
-        cache["ssm"][li] = h
-        cache["conv"][li] = torch.cat([tail_in @ lp["w_in"].to(x.dtype),
+        cache["ssm"][li] = tp.gather(h, d_in, 1)
+        cache["conv"][li] = torch.cat([tp.gather(tail_in @ lp["w_in"].to(x.dtype), d_in, -1),
                                        tail_in @ lp["w_bc"].to(x.dtype)], dim=-1)
         return x + y
 
@@ -295,6 +303,6 @@ def _zamba_prefill(params, tokens, cfg, max_len):
             x = mamba_prefill(x, lp, li)
             li += 1
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)[:, 0]
-    logits = x @ params["lm_head"].to(x.dtype)
+    logits = mamba.zamba_logits(params, x, cfg)
     cache["x0"] = x0[:, -1]
     return logits, cache

@@ -200,10 +200,13 @@ def attention_block(
     use_rope: bool = True,
     kv_x: Optional[torch.Tensor] = None,
     kv_positions: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_kv: bool = False,
+):
     """Full attention sub-layer (no residual/norm — caller owns those).
 
     ``kv_x`` switches to cross-attention (keys/values from encoder states).
+    ``return_kv`` also returns the (k, v) a cache holds: this rank's KV heads
+    where the ``model`` axis divides them, else all of them.
     """
     dt = x.dtype
     kv_whole = not tp.sharded(cfg.n_kv_heads)  # read in part by the local query heads
@@ -223,10 +226,12 @@ def attention_block(
         q = apply_rope(q, positions, cfg.rope_theta)
         kpos = positions if kv_positions is None else kv_positions
         k = apply_rope(k, kpos, cfg.rope_theta)
+    kv = (k, v)
     if kv_whole:
         k, v = tp.copy(k, cfg.n_heads), tp.copy(v, cfg.n_heads)
     o = attention_impl(cfg)(q, local_kv(k, cfg), local_kv(v, cfg), causal=causal)
-    return tp.reduce(out_proj(params, o, dt), cfg.n_heads)
+    y = tp.reduce(out_proj(params, o, dt), cfg.n_heads)
+    return (y, kv) if return_kv else y
 
 
 # ---------------------------------------------------------------------------

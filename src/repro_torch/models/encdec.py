@@ -12,12 +12,22 @@ With ``attn_impl="pallas"`` the encoder (non-causal), the decoder's self
 attention (causal) and its cross attention (non-causal, Sq != Skv) go
 through the flash kernel; the decode step is plain torch ops, as the
 reference's is plain jnp.
+
+Under a tensor-parallel mesh (``dist.activation_sharding``, params placed by
+``dist.param_specs``) every attention runs on this rank's heads and every
+MLP on its columns, each summed over the ranks; the cross attention's K/V
+are this rank's KV heads where the ``model`` axis divides them (the rule
+puts ``cross_k``/``cross_v`` on ``model``), and the replicated biases are
+cut to the local heads.  The head, tied to the vocab-split ``embed``,
+gathers its local logits before the pad slots are masked.
 """
 from __future__ import annotations
 
 from functools import partial
 
 import torch
+
+from repro_torch.dist import tensor_parallel as tp
 
 from . import attention as attn
 from . import mlp as mlps
@@ -72,24 +82,32 @@ def encdec_init(gen: torch.Generator, cfg) -> Params:
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
+def _mlp(cfg, p, x):
+    """The MLP on this rank's columns, summed over the ranks."""
+    return tp.reduce(mlps.mlp(p, tp.copy(x, cfg.d_ff), cfg), cfg.d_ff)
+
+
 def _enc_block(cfg, p, x, positions):
     h = attn.attention_block(
         p["attn"], layernorm(p["attn_norm"], x, cfg.norm_eps), cfg, positions,
         causal=False, use_rope=False,
     )
     x = x + h
-    return x + mlps.mlp(p["mlp"], layernorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
+    return x + _mlp(cfg, p["mlp"], layernorm(p["mlp_norm"], x, cfg.norm_eps))
 
 
-def _cross_kv(p, enc_out):
+def _cross_kv(p, enc_out, cfg):
     """The cross attention's K/V of the encoder states, biases included:
-    position-independent, so the prefill computes them once per layer."""
+    position-independent, so the prefill computes them once per layer.
+    This rank's KV heads where the ``model`` axis divides them, else all."""
     dt = enc_out.dtype
+    if tp.sharded(cfg.n_kv_heads):  # into this rank's KV heads
+        enc_out = tp.copy(enc_out, cfg.n_kv_heads)
     k = torch.einsum("bfd,dkx->bfkx", enc_out, p["wk"].to(dt))
     v = torch.einsum("bfd,dkx->bfkx", enc_out, p["wv"].to(dt))
     if "bk" in p:
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+        k = k + attn.local_bias(p["bk"], cfg.n_kv_heads).to(dt)
+        v = v + attn.local_bias(p["bv"], cfg.n_kv_heads).to(dt)
     return k, v
 
 
@@ -97,22 +115,26 @@ def _cross(cfg, p, x, ck, cv):
     """Cross attention of the normed decoder states x (B, S, d) over the
     encoder's K/V: ``attention_block(kv_x=enc_out)`` with its K/V given."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhx->bshx", x, p["wq"].to(dt))
+    q = torch.einsum("bsd,dhx->bshx", tp.copy(x, cfg.n_heads), p["wq"].to(dt))
     if "bq" in p:
-        q = q + p["bq"].to(dt)
-    return attn.out_proj(p, attn.attention_impl(cfg)(q, ck, cv, causal=False), dt)
+        q = q + attn.local_bias(p["bq"], cfg.n_heads).to(dt)
+    if not tp.sharded(cfg.n_kv_heads):  # whole KV heads read by the local query heads
+        ck, cv = tp.copy(ck, cfg.n_heads), tp.copy(cv, cfg.n_heads)
+    o = attn.attention_impl(cfg)(q, attn.local_kv(ck, cfg), attn.local_kv(cv, cfg),
+                                 causal=False)
+    return tp.reduce(attn.out_proj(p, o, dt), cfg.n_heads)
 
 
 def _dec_block(cfg, p, x, positions, ck, cv):
     """One decoder layer over x (B, S, d) with the encoder's K/V; returns x
     and the self attention's (k, v) for the cache."""
     xin = layernorm(p["self_norm"], x, cfg.norm_eps)
-    q, k, v = attn.qkv_proj(p["self_attn"], xin, cfg)
-    x = x + attn.out_proj(p["self_attn"], attn.attention_impl(cfg)(q, k, v, causal=True),
-                          x.dtype)
+    h, kv = attn.attention_block(p["self_attn"], xin, cfg, positions, causal=True,
+                                 use_rope=False, return_kv=True)
+    x = x + h
     x = x + _cross(cfg, p["cross_attn"], layernorm(p["cross_norm"], x, cfg.norm_eps), ck, cv)
-    x = x + mlps.mlp(p["mlp"], layernorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
-    return x, (k, v)
+    x = x + _mlp(cfg, p["mlp"], layernorm(p["mlp_norm"], x, cfg.norm_eps))
+    return x, kv
 
 
 # ---------------------------------------------------------------------------
@@ -131,8 +153,11 @@ def encode(params: Params, frames: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def _logits(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """The head tied to ``embed``, pad slots masked."""
-    return mask_vocab_pad(torch.einsum("...d,vd->...v", x, params["embed"].to(x.dtype)), cfg)
+    """The head tied to ``embed``: a vocab-split table's local logits
+    gathered, then the pad slots (global columns) masked."""
+    x = tp.copy(x, cfg.padded_vocab)
+    logits = torch.einsum("...d,vd->...v", x, params["embed"].to(x.dtype))
+    return mask_vocab_pad(tp.gather(logits, cfg.padded_vocab, -1), cfg)
 
 
 def _decode(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor, cfg) -> tuple:
@@ -143,7 +168,7 @@ def _decode(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor, cfg) ->
     x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)
     positions = token_positions(b, s, x.device)
     def layer(lp, x, enc_out):
-        ck, cv = _cross_kv(lp["cross_attn"], enc_out)
+        ck, cv = _cross_kv(lp["cross_attn"], enc_out, cfg)
         x, (k, v) = _dec_block(cfg, lp, x, positions, ck, cv)
         return x, (k, v, ck, cv)
 
@@ -197,7 +222,8 @@ def encdec_prefill(params: Params, frames: torch.Tensor, tokens: torch.Tensor, c
     x, kvs = _decode(params, tokens, enc_out, cfg)
     last = _logits(params, x[:, -1], cfg)
     cdt = torch.bfloat16 if cfg.dtype == "bfloat16" else x.dtype
-    cache = encdec_init_cache(cfg, b, max_len, cdt, x.device)
+    lo, hi = tp.local_range(cfg.n_kv_heads)  # this rank's KV heads
+    cache = encdec_init_cache(cfg.replace(n_kv_heads=hi - lo), b, max_len, cdt, x.device)
     for name, i in (("cross_k", 2), ("cross_v", 3)):
         cache[name] = torch.stack([kv[i] for kv in kvs]).to(cdt)
     for i, (k, v, _, _) in enumerate(kvs):
@@ -235,6 +261,6 @@ def encdec_decode_step(params: Params, cache: dict, tokens: torch.Tensor, pos: t
                                         cache["cross_v"][i], fpos, use_rope=False,
                                         update_cache=False)
         x = x + h
-        x = x + mlps.mlp(lp["mlp"], layernorm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
+        x = x + _mlp(cfg, lp["mlp"], layernorm(lp["mlp_norm"], x, cfg.norm_eps))
     x = layernorm(params["dec_norm"], x, cfg.norm_eps)
     return _logits(params, x, cfg), cache

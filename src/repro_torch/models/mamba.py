@@ -15,6 +15,20 @@ leaves with ``(tail,)``); the layers run as Python loops over those axes.
 The reference's sharding pins are left out; each Mamba2 residual layer of
 the full-sequence forward is checkpointed (``common.remat``) when
 ``cfg.remat`` is set and grad is enabled, as the reference's.
+
+Under a tensor-parallel mesh (``dist.activation_sharding``, params placed by
+``dist.param_specs``) the rule splits ``w_in`` on its columns (so each rank
+holds the heads [lo, hi) of ``d_in = H·P``), ``w_out`` on its rows (summed
+over the ranks), ``lm_head`` and ``embed`` on the vocab and the shared
+block's ``wq``/``wk``/``wv``/``wo`` on the heads; every other Mamba2 leaf
+(``w_z``, ``w_bc``, ``w_dt``, ``dt_bias``, ``A_log``, ``D``, ``conv_w``,
+``conv_b``, ``out_norm``) and the shared block's MLP and norms stay whole.
+A rank reads its heads' part of each whole leaf, and the B/C channels whole,
+after ``tp.copy``; ``out_norm``, an RMSNorm over all of ``d_in``, sums its
+squares over the ranks (``tp.sum_split``).  The scan runs on the local
+heads.  The decode step gathers the step's local ``x @ w_in`` columns and
+updates the whole state on every rank (the cache's SSM and conv state are
+whole, as the rule lays them); only ``w_out``'s partial is summed.
 """
 from __future__ import annotations
 
@@ -22,6 +36,8 @@ from functools import partial
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist import tensor_parallel as tp
 
 from ..kernels.ref import ssd_chunked_ref
 from . import attention as attn
@@ -115,30 +131,76 @@ def ssd_chunked(u, a_log, B_, C_, h0, chunk: int):
     return y[:, :s].to(u.dtype), h_final
 
 
+def local_heads(cfg) -> tuple:
+    """This rank's [lo, hi) of the Mamba2 heads: those of its columns of
+    ``w_in`` (all of them when the rule keeps ``d_in`` whole)."""
+    d_in, _, _ = mamba_dims(cfg)
+    lo, hi = tp.local_range(d_in)
+    pd = cfg.ssm_head_dim
+    if lo % pd or hi % pd:
+        raise ValueError(f"the `model` axis splits d_in={d_in} inside a head of {pd} channels")
+    return lo // pd, hi // pd
+
+
+def _part(leaf: torch.Tensor, d_in: int, lo: int, hi: int) -> torch.Tensor:
+    """A whole leaf's last-dim [lo, hi), read by this rank's heads (its
+    gradient, partial on each rank, summed over them)."""
+    return tp.copy(leaf, d_in)[..., lo:hi]
+
+
+def _conv_part(leaf: torch.Tensor, d_in: int, lo: int, hi: int) -> torch.Tensor:
+    """The conv's channels this rank reads of a whole ``conv_w``/``conv_b``:
+    its heads' ``x`` channels and every B/C channel."""
+    if (lo, hi) == (0, d_in):
+        return leaf
+    leaf = tp.copy(leaf, d_in)
+    return torch.cat([leaf[..., lo:hi], leaf[..., d_in:]], dim=-1)
+
+
+def _out_norm(p: Params, y: torch.Tensor, cfg, d_in: int, lo: int, hi: int) -> torch.Tensor:
+    """``rmsnorm(p["out_norm"], y)`` over all of ``d_in``, y holding this
+    rank's channels [lo, hi): the sum of squares summed over the ranks."""
+    if (lo, hi) == (0, d_in):
+        return rmsnorm(p["out_norm"], y, cfg.norm_eps)
+    dt = y.dtype
+    y32 = y.float()
+    var = tp.sum_split(y32.square().sum(dim=-1, keepdim=True), d_in) / d_in
+    scale = _part(p["out_norm"]["scale"], d_in, lo, hi)
+    return (y32 * torch.rsqrt(var + cfg.norm_eps) * scale.float()).to(dt)
+
+
 def mamba_forward(p: Params, x: torch.Tensor, cfg, h0=None, return_state: bool = False):
     """Full-sequence Mamba2 block (no residual).  x (B,S,d).
 
     ``cfg.ssm_impl == "pallas"`` routes the scan through the dispatch-API
     kernel; stateful calls (``h0`` given or ``return_state=True``) always use
     the plain chunked scan — the kernel has no initial/final-state interface.
+    Under a tensor-parallel mesh the block runs on this rank's heads (``h0``
+    and the returned state hold them) and the output is summed over the
+    ranks.
     """
     bsz, s, _ = x.shape
-    d_in, h, _ = mamba_dims(cfg)
+    d_in, _, _ = mamba_dims(cfg)
     n, pd = cfg.ssm_state, cfg.ssm_head_dim
     dt = x.dtype
+    h_lo, h_hi = local_heads(cfg)
+    lo, hi, h = h_lo * pd, h_hi * pd, h_hi - h_lo
 
-    xin = x @ p["w_in"].to(dt)
-    z = x @ p["w_z"].to(dt)
-    bc = x @ p["w_bc"].to(dt)
-    dt_raw = (x @ p["w_dt"].to(dt)).float() + p["dt_bias"].float()
+    xs = tp.copy(x, d_in)  # into this rank's heads
+    xin = xs @ p["w_in"].to(dt)
+    z = xs @ _part(p["w_z"], d_in, lo, hi).to(dt)
+    bc = tp.copy(x @ p["w_bc"].to(dt), d_in)  # whole, read by every rank's heads
+    dt_raw = ((xs @ _part(p["w_dt"], d_in, h_lo, h_hi).to(dt)).float()
+              + _part(p["dt_bias"], d_in, h_lo, h_hi).float())
     delta = _softplus(dt_raw)  # (B,S,H)
 
     conv_in = torch.cat([xin, bc], dim=-1)
-    conv_out = _causal_conv(conv_in, p["conv_w"].to(dt), p["conv_b"].to(dt))
-    xin, b_, c_ = torch.split(conv_out, [d_in, n, n], dim=-1)
+    conv_out = _causal_conv(conv_in, _conv_part(p["conv_w"], d_in, lo, hi).to(dt),
+                            _conv_part(p["conv_b"], d_in, lo, hi).to(dt))
+    xin, b_, c_ = torch.split(conv_out, [hi - lo, n, n], dim=-1)
 
     xh = xin.reshape(bsz, s, h, pd)
-    a_log = -torch.exp(p["A_log"].float())[None, None] * delta  # (B,S,H)
+    a_log = -torch.exp(_part(p["A_log"], d_in, h_lo, h_hi).float())[None, None] * delta
     u = xh * delta.to(dt)[..., None]
 
     if cfg.ssm_impl == "pallas" and h0 is None and not return_state:
@@ -152,23 +214,29 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg, h0=None, return_state: bool =
         if h0 is None:
             h0 = torch.zeros((bsz, h, pd, n), dtype=torch.float32, device=x.device)
         y, h_final = ssd_chunked(u, a_log, b_, c_, h0, cfg.ssm_chunk)
-    y = y + xh * p["D"].to(dt)[None, None, :, None]
-    y = y.reshape(bsz, s, d_in)
-    y = rmsnorm(p["out_norm"], y, cfg.norm_eps) * F.silu(z)
-    out = y @ p["w_out"].to(dt)
+    y = y + xh * _part(p["D"], d_in, h_lo, h_hi).to(dt)[None, None, :, None]
+    y = y.reshape(bsz, s, hi - lo)
+    y = _out_norm(p, y, cfg, d_in, lo, hi) * F.silu(z)
+    out = tp.reduce(y @ p["w_out"].to(dt), d_in)
     if return_state:
         return out, h_final
     return out
 
 
 def mamba_decode(p: Params, x: torch.Tensor, cfg, ssm_state, conv_state):
-    """Single-token Mamba2 step.  x (B,d); returns (y, ssm_state, conv_state)."""
+    """Single-token Mamba2 step.  x (B,d); returns (y, ssm_state, conv_state).
+
+    Under a tensor-parallel mesh this rank's columns of ``x @ w_in`` are
+    gathered and the step runs whole (the states are whole on every rank);
+    ``w_out``'s rows, this rank's channels, give a partial summed over the
+    ranks."""
     bsz, _ = x.shape
     d_in, h, _ = mamba_dims(cfg)
     n, pd = cfg.ssm_state, cfg.ssm_head_dim
     dt = x.dtype
+    h_lo, h_hi = local_heads(cfg)
 
-    xin = x @ p["w_in"].to(dt)
+    xin = tp.gather(tp.copy(x, d_in) @ p["w_in"].to(dt), d_in, -1)
     z = x @ p["w_z"].to(dt)
     bc = x @ p["w_bc"].to(dt)
     delta = _softplus((x @ p["w_dt"].to(dt)).float() + p["dt_bias"].float())  # (B,H)
@@ -185,7 +253,8 @@ def mamba_decode(p: Params, x: torch.Tensor, cfg, ssm_state, conv_state):
     y = y + xh * p["D"].float()[None, :, None]
     y = y.reshape(bsz, d_in).to(dt)
     y = rmsnorm(p["out_norm"], y, cfg.norm_eps) * F.silu(z)
-    return y @ p["w_out"].to(dt), ssm_state, conv_state
+    y = tp.copy(y, d_in)[:, h_lo * pd:h_hi * pd]  # this rank's rows of w_out
+    return tp.reduce(y @ p["w_out"].to(dt), d_in), ssm_state, conv_state
 
 
 # ---------------------------------------------------------------------------
@@ -270,8 +339,16 @@ def zamba_forward(params: Params, tokens: torch.Tensor, cfg):
         x = _shared_attn_apply(cfg, params["shared_attn"], x, x0, positions)
         for lp in layers:
             x = mamba_res(lp, x)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
+    return zamba_logits(params, rmsnorm(params["final_norm"], x, cfg.norm_eps), cfg)
+
+
+def zamba_logits(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x (..., d) after the final norm -> logits (..., V): a vocab-split
+    ``lm_head``'s local logits gathered (no pad slot is masked, as the
+    reference's head masks none)."""
+    x = tp.copy(x, cfg.padded_vocab)
+    logits = torch.einsum("...d,dv->...v", x, params["lm_head"].to(x.dtype))
+    return tp.gather(logits, cfg.padded_vocab, -1)
 
 
 def zamba_loss(params: Params, batch: dict, cfg) -> torch.Tensor:
@@ -328,8 +405,8 @@ def zamba_decode_step(params: Params, cache: dict, tokens: torch.Tensor, pos: to
             ssm.append(s_new)
             conv.append(c_new)
             li += 1
-    x = rmsnorm(params["final_norm"], x[:, None], cfg.norm_eps)[:, 0]
-    logits = x @ params["lm_head"].to(x.dtype)
+    logits = zamba_logits(params, rmsnorm(params["final_norm"], x[:, None], cfg.norm_eps)[:, 0],
+                          cfg)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs), "ssm": torch.stack(ssm),
              "conv": torch.stack(conv), "x0": x0}
     return logits, cache

@@ -140,9 +140,8 @@ def embed_tokens(params: Params, tokens: torch.Tensor, cfg,
     """Gather the rows, then cast: bit for bit the reference's cast-then-gather,
     without casting the whole table on every call.  A vocab-sharded table
     gives each rank's rows (zeros for ids outside its slice), summed over
-    the ranks.  The VLM's frontend has no tensor-parallel form yet."""
-    if frontend is not None:
-        tp.refuse("the VLM frontend")
+    the ranks.  The VLM's frontend, replicated on every rank, is prepended
+    after that sum."""
     dt = as_dtype(cfg.dtype)
     table = zero.whole(params["embed"])
     lo, hi = tp.local_range(cfg.padded_vocab)
@@ -170,7 +169,7 @@ def lm_logits(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
         logits = torch.einsum("bsd,vd->bsv", x, zero.whole(params["embed"]).to(dt))
     else:
         logits = torch.einsum("bsd,dv->bsv", x, zero.whole(params["lm_head"]).to(dt))
-    return mask_vocab_pad(tp.gather_last(logits, cfg.padded_vocab), cfg)
+    return mask_vocab_pad(tp.gather(logits, cfg.padded_vocab, -1), cfg)
 
 
 # ---------------------------------------------------------------------------

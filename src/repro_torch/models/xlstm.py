@@ -15,11 +15,20 @@ enabled.  The family reaches no kernel: it is plain torch, as the reference
 is plain jnp.  Its cache is each layer's final recurrent state, so the
 serving engine (which needs ``decode_chunk``) refuses it, as the
 reference's does.
+
+Under a tensor-parallel mesh only ``embed`` and ``lm_head`` split (on the
+vocab): no block leaf matches a rule of ``dist.param_specs``, so the blocks
+and their recurrent state are whole on every rank, and ``prefill`` returns
+the whole cache.  (``dist.cache_shardings`` would put xlstm-1.3b's ``mn``
+on ``model``, its head dim matching ``n_kv_heads`` = 4 by coincidence; no
+engine places this family's cache.)
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist import tensor_parallel as tp
 
 from .common import (
     Params,
@@ -294,8 +303,11 @@ def _macros(params: Params) -> list:
 
 
 def _head(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
+    """The final norm and the head: a vocab-split ``lm_head``'s local logits
+    gathered."""
+    x = tp.copy(rmsnorm(params["final_norm"], x, cfg.norm_eps), cfg.padded_vocab)
+    logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
+    return tp.gather(logits, cfg.padded_vocab, -1)
 
 
 def xlstm_forward(params: Params, tokens: torch.Tensor, cfg):

@@ -14,9 +14,10 @@ preemption, and copy-on-write shared prefixes
 ``ClusterRouter`` + ``ClusterConfig`` scale the same surface out: a
 data-parallel replica router with pluggable placement policies (extensible
 via ``register_router``), pooled ``ClusterMetrics``, and replica-failure
-drain/requeue.  Tensor-parallel replicas (``ClusterConfig.tp > 1``) need a
-process group per replica under one router (ROADMAP.md §1 item 11b); one
-tensor-parallel engine runs with ``EngineConfig.mesh``.
+drain/requeue.  A tensor-parallel replica (``ClusterConfig.tp > 1``) is a
+group of ranks, one process each, under the one router
+(``TensorParallelReplica``); one tensor-parallel engine runs with
+``EngineConfig.mesh``.
 
 Robustness: per-request deadlines (``submit(deadline_s=)``), a budgeted
 requeue path with exponential backoff (``RetryBudgetExceeded``), NaN-guard

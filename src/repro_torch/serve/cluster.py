@@ -15,10 +15,15 @@ Device placement (:func:`replica_meshes`): with one device every replica
 shares the model and one copy of the params there (each keeps its own KV
 cache and slots), as the reference's replicas share arrays when the mesh is
 ``None``; over several CUDA devices each replica takes one device, wrapping
-around, with a model built there and its own copy of the params.  Tensor
-parallelism inside a replica (the reference's ``tp > 1`` meshes) needs a
-process group per replica under one router (ROADMAP.md §1 item 11b); a
-single tensor-parallel engine runs with ``EngineConfig.mesh``.
+around, with a model built there and its own copy of the params.  With
+``tp > 1`` each replica is a group of ``tp`` ranks, one process each
+(:class:`~repro_torch.serve.replica_group.TensorParallelReplica`), whose
+engines run on the replica's 1-D ``model`` mesh, as the reference gives
+each replica its own mesh; the router, its health monitors, breakers,
+failover and requeues stay in the caller's process.  Ranks stand in for the
+reference's devices: ``devices=["cuda"] * 4`` places 2 replicas × tp 2 on
+one card, whose ranks share it over gloo.  :meth:`ClusterRouter.close`
+stops the ranks.
 
 Replicas are built lazily on first use, so a model family the engine cannot
 serve surfaces its typed :class:`~repro_torch.serve.engine.UnsupportedFamilyError`
@@ -39,7 +44,7 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Optional, Protocol, Sequence, runtime_checkable
+from typing import Optional, Protocol, Sequence, Union, runtime_checkable
 
 import torch
 
@@ -51,6 +56,7 @@ from repro_torch.models.api import ModelApi, build_model
 from .engine import EngineConfig, ReplicaCrashed, ServeEngine
 from .metrics import ClusterMetrics
 from .paging import SharedPrefix
+from .replica_group import TensorParallelReplica
 from .session import Session
 
 
@@ -73,8 +79,10 @@ def replica_meshes(n_replicas: int, tp: int = 1, devices=None) -> list:
     single device the placements are ``None``: the replicas share the model
     and its params.  With ``tp == 1`` over several devices each replica gets
     one ``torch.device``, wrapping around when replicas outnumber devices.
-    ``tp > 1`` (a tensor-parallel process group per replica under one
-    router) raises ``NotImplementedError``.
+    With ``tp > 1`` each replica gets the tuple of its ``tp`` ranks'
+    devices, as the reference gives each its mesh: disjoint groups when
+    ``n_replicas * tp`` fits the devices, wrapping around otherwise (the
+    replicas then share devices).
     """
     if n_replicas < 1:
         raise ValueError("n_replicas must be >= 1")
@@ -87,11 +95,8 @@ def replica_meshes(n_replicas: int, tp: int = 1, devices=None) -> list:
             f"have {len(devices)}"
         )
     if tp > 1:
-        raise NotImplementedError(
-            f"tensor-parallel replicas (tp={tp}) need a process group per replica "
-            "under one router (ROADMAP.md §1 item 11b); use tp=1, or one engine with "
-            "EngineConfig.mesh"
-        )
+        return [tuple(devices[(r * tp + i) % len(devices)] for i in range(tp))
+                for r in range(n_replicas)]
     if len(devices) == 1:
         return [None] * n_replicas
     return [devices[r % len(devices)] for r in range(n_replicas)]
@@ -125,15 +130,18 @@ BREAKER_HALF_OPEN = "half_open"
 
 @dataclass
 class Replica:
-    """One data-parallel member: an engine pinned to a device.
+    """One data-parallel member: an engine pinned to a device, or a
+    tensor-parallel group of ranks.
 
     ``mesh`` keeps the reference's field name: ``None`` when every replica
-    shares the model's device, else the replica's ``torch.device``.
+    shares the model's device, else the replica's ``torch.device``, or its
+    ranks' devices when ``tp > 1`` (the engine is then a
+    :class:`~repro_torch.serve.replica_group.TensorParallelReplica`).
     """
 
     index: int
-    engine: ServeEngine
-    mesh: Optional[torch.device] = None
+    engine: Union[ServeEngine, TensorParallelReplica]
+    mesh: Union[None, torch.device, tuple] = None
     alive: bool = True
     # circuit-breaker bookkeeping (driven by ClusterRouter when health
     # monitoring is on; a manual fail_replica still opens the breaker)
@@ -342,7 +350,8 @@ class ClusterConfig:
     ``engine`` is the per-replica template — its ``mesh`` must be unset
     (the cluster owns device placement, see :func:`replica_meshes`).
     ``devices`` limits the device pool (default: the visible CUDA devices,
-    or the model's device when the model was built on the CPU).  ``health``
+    or the model's device when the model was built on the CPU); with
+    ``tp > 1`` an entry is one rank's device, and may repeat.  ``health``
     turns on heartbeat/straggler monitoring with automatic failover and the
     circuit breaker (default off: detection thresholds are workload-relative
     and first-tick costs would need the warm-up pass the bench suites do).
@@ -350,7 +359,7 @@ class ClusterConfig:
 
     engine: EngineConfig
     n_replicas: int = 1
-    tp: int = 1  # tensor-parallel degree inside each replica (only 1 runs)
+    tp: int = 1  # tensor-parallel degree inside each replica (its ranks)
     router: str = "least_loaded"  # policy name used when none is injected
     devices: Optional[tuple] = None  # device pool (None: see the docstring)
     health: Optional[HealthConfig] = None  # None: manual fail_replica only
@@ -431,12 +440,16 @@ class ClusterRouter:
         home = _indexed(self.model.device)
         built = {home: (self.model, self.params)}
         for i, dev in enumerate(placements):
-            key = home if dev is None else _indexed(dev)
-            if key not in built:
-                built[key] = (build_model(self.model.cfg, device=key),
-                              _params_to(self.params, key))
-            model, params = built[key]
-            engine = ServeEngine(model, params, self.cfg.engine)
+            if isinstance(dev, tuple):  # tp ranks, each placing its shards
+                engine = TensorParallelReplica(self.model.cfg, self.params, self.cfg.engine,
+                                               [_indexed(d) for d in dev])
+            else:
+                key = home if dev is None else _indexed(dev)
+                if key not in built:
+                    built[key] = (build_model(self.model.cfg, device=key),
+                                  _params_to(self.params, key))
+                model, params = built[key]
+                engine = ServeEngine(model, params, self.cfg.engine)
             engine._rid = i * _RID_STRIDE  # cluster-unique session rids
             self.replicas.append(Replica(index=i, engine=engine, mesh=dev))
             if self.monitor is not None:
@@ -693,3 +706,10 @@ class ClusterRouter:
         for r in self.replicas:
             r.engine.reset_metrics()
         self.metrics = ClusterMetrics()
+
+    def close(self) -> None:
+        """Stop the ranks of the tensor-parallel replicas (an in-process
+        replica has none)."""
+        for r in self.replicas:
+            if isinstance(r.engine, TensorParallelReplica):
+                r.engine.close()

@@ -181,9 +181,11 @@ class EngineConfig:
       ``dist.cache_shardings``/``paged_cache_shardings`` (KV heads on
       ``model`` when divisible), and the steps run under
       ``dist.activation_sharding(mesh)``.  Tokens come from the gathered
-      logits, so every rank samples the same ones.  The decoder families
-      (dense, moe) only; a ``data``/``pod`` axis or another family raises
-      ``NotImplementedError`` (ROADMAP.md §1 item 11b).
+      logits, so every rank samples the same ones.  Every family the
+      engine serves (dense, moe, vlm) runs on it; a ``data``/``pod`` axis
+      raises ``NotImplementedError``: placing the served params over
+      ``data`` too (the reference's ``serve_param_fsdp``) waits
+      (ROADMAP.md §1 item 11b).
     - ``eos_id`` — sampled token that finishes a request early.
     - ``sampler`` — logits -> token function (greedy default).
     - ``scheduler`` — stock admission policy name used when no
@@ -278,6 +280,25 @@ class EngineConfig:
         return -(-self.max_len // self.page_size)
 
 
+def check_request(config: EngineConfig, prompt, max_new_tokens: int,
+                  deadline_s: Optional[float]) -> list:
+    """The prompt as a list of ints, or ``ValueError`` for a request the
+    engine cannot take."""
+    prompt = [int(t) for t in prompt]
+    if not prompt:
+        raise ValueError("empty prompt")
+    if len(prompt) >= config.max_len:
+        raise ValueError(
+            f"prompt length {len(prompt)} must be < max_len "
+            f"{config.max_len} (no room to generate)"
+        )
+    if max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1")
+    if deadline_s is not None and deadline_s <= 0:
+        raise ValueError("deadline_s must be positive (or None)")
+    return prompt
+
+
 class ServeEngine:
     """Continuous-batching engine over a fixed slot grid.
 
@@ -301,11 +322,11 @@ class ServeEngine:
         self.mesh = config.mesh
         if self.mesh is not None:
             axes = set(getattr(self.mesh, "shape", ()))
-            if axes != {"model"} or model.cfg.family not in ("dense", "moe"):
+            if axes != {"model"}:
                 raise NotImplementedError(
-                    f"EngineConfig.mesh: tensor-parallel serving runs the dense and moe "
-                    f"families on a 1-D `model` mesh; {model.cfg.family} on {self.mesh!r} "
-                    "waits (ROADMAP.md §1 item 11b)")
+                    f"EngineConfig.mesh: tensor-parallel serving runs on a 1-D `model` "
+                    f"mesh; {self.mesh!r} would also place the served params over `data` "
+                    "(serve_param_fsdp), which waits (ROADMAP.md §1 item 11b)")
             if params is not None:  # each rank keeps its shard of the global params
                 params = rdist.shard_tree(params, rdist.param_specs(params, model.cfg,
                                                                      self.mesh))
@@ -665,18 +686,7 @@ class ServeEngine:
         finishes with ``finish_reason="deadline"`` and whatever output it
         has (the goodput metrics exclude its tokens).
         """
-        prompt = [int(t) for t in prompt]
-        if not prompt:
-            raise ValueError("empty prompt")
-        if len(prompt) >= self.cfg.max_len:
-            raise ValueError(
-                f"prompt length {len(prompt)} must be < max_len "
-                f"{self.cfg.max_len} (no room to generate)"
-            )
-        if max_new_tokens < 1:
-            raise ValueError("max_new_tokens must be >= 1")
-        if deadline_s is not None and deadline_s <= 0:
-            raise ValueError("deadline_s must be positive (or None)")
+        prompt = check_request(self.cfg, prompt, max_new_tokens, deadline_s)
         session = Session(self._rid, prompt, max_new_tokens,
                           priority=priority, on_token=on_token,
                           deadline_s=deadline_s)

@@ -143,8 +143,8 @@ def test_replica_meshes_single_device_and_errors():
 def test_replica_meshes_several_devices_and_tensor_parallel(monkeypatch):
     pool = [torch.device("cpu"), torch.device("meta")]
     assert tserve.replica_meshes(3, devices=pool) == [pool[0], pool[1], pool[0]]  # wraps
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tserve.replica_meshes(2, tp=2, devices=pool)
+    # tp ranks a replica, wrapping around the pool as the reference's meshes do
+    assert tserve.replica_meshes(2, tp=2, devices=pool) == [tuple(pool), tuple(pool)]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NoCudaDeviceError):  # the default pool is the visible cards
         tserve.replica_meshes(2)

@@ -425,6 +425,29 @@ def test_ssm_scan_kernel(dev, dtype, tol, chunk, bsz, s, h, p, n, decay):
                                    atol=tol * scale)
 
 
+@pytest.mark.parametrize("decay", ["fast", "slow"])
+def test_ssm_scan_at_a_tensor_parallel_ranks_shape(dev, decay):
+    """zamba2-7b at tp 2: each rank scans its 56 of the 112 heads, u (4,
+    1000, 56, 64) bf16 with head-shared B/C (4, 1000, 64), chunk 256 (S
+    padded by the wrapper); on the wgmma route, against the chunked plain
+    version in fp32 on the same bf16 inputs, and equal to the same heads of
+    the whole-heads scan (each head's scan reads only its own u and a)."""
+    u, a, b, c = _ssm_inputs(dev, torch.bfloat16, 4, 1000, 112, 64, 64, seed=25, decay=decay)
+    routes = _util.route_counts().get("ssm_scan", {}).get("wgmma", 0)
+    ur, ar = u[:, :, :56].contiguous(), a[:, :, :56].contiguous()
+    got = tapi.ssm_scan(ur, ar, b, c, chunk=256)
+    torch.cuda.synchronize()
+    assert _util.route_counts()["ssm_scan"]["wgmma"] == routes + 1
+    padded = [_util.pad_to_multiple(t.float() if t.dtype != torch.float32 else t, 256, 1)
+              for t in (ur, ar, b, c)]
+    want = _util.unflatten_heads(ref.ssm_scan_chunked_ref(*_util.flatten_ssm(*padded), 256),
+                                 4)[:, :1000]
+    tol = dict(_SSM_TOL)[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol * float(want.abs().max()))
+    whole = tapi.ssm_scan(u, a, b, c, chunk=256)
+    torch.testing.assert_close(got, whole[:, :, :56], rtol=0, atol=0)
+
+
 def test_hybrid_forward_runs_both_kernels(dev):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model

@@ -246,7 +246,9 @@ def test_run_ranks_returns_in_rank_order_and_fails_with_a_rank():
 
     assert (run_ranks(workers.world, 3, device="cpu", timeout=120)
             == [(r, 3, "gloo") for r in range(3)])
-    assert choose_backend("cpu", 2) == "gloo"
+    assert choose_backend(["cpu", "cpu"]) == "gloo"
+    assert choose_backend(["cuda:0", "cuda:1"]) == "nccl"
+    assert choose_backend(["cuda", "cuda"]) == choose_backend(["cuda:0", "cpu"]) == "gloo"
     with pytest.raises(RuntimeError, match="rank 1 failed(.|\\n)*on purpose"):
         run_ranks(workers.fail_on_one, 2, device="cpu", timeout=120)
     with pytest.raises(TimeoutError, match="of 2 ranks did not finish"):

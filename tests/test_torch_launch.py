@@ -56,7 +56,7 @@ def test_launcher_serves_every_request_and_prints_the_references_lines(capsys, e
 @pytest.mark.parametrize("argv,match", [
     (["--router", "nope"], "registered: \\['least_loaded', 'prefix_affinity', 'round_robin'\\]"),
     (["--shared-prefix", "4"], "--shared-prefix requires --page-size"),
-    (["--tp", "2"], "tensor-parallel degree 2 needs 2 devices, have 1"),
+    (["--tp", "2", "--replicas", "0"], "n_replicas must be >= 1"),  # --tp 2 alone serves
     (["--backend", "xla"], None),  # the port's backends are cuda and torch
 ])
 def test_launcher_refusals(capsys, argv, match):

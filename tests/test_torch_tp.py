@@ -11,7 +11,9 @@ query heads, 2 KV heads, 4 experts) at tp 4, where each rank's one query
 head reads global KV head ``rank // 2`` with the KV heads whole (the local
 grouping would read head 0), and its experts are spread one a rank;
 qwen2.5-14b ``reduced()`` (2 KV heads, q/k/v biases) at tp 2 splits its KV
-heads and slices its replicated biases to the local heads.  The
+heads and slices its replicated biases to the local heads; internvl2-76b
+``reduced()`` (the VLM, served text requests) at tp 2 splits its 2 KV
+heads.  The
 prefill's gathered last logits under the mesh hold against the reference's
 prefill within ``guard.tolerance(float32, "nvidia-h100-sxm")`` (256 ulps):
 the row-parallel sums add the ranks' partials in another order.
@@ -43,8 +45,9 @@ _F32 = guard.tolerance(np.float32, "nvidia-h100-sxm")
 PROMPTS = [[1 + (i % 5), 2, 3 + i % 7] for i in range(4)]
 MAX_NEW = 6
 TPS = (1, 2, 4)
-NAMES_AT = {1: ("gemma-2b",), 2: ("gemma-2b", "qwen2.5-14b"), 4: ("gemma-2b", "olmoe-1b-7b")}
-REFUSING = ("zamba2-7b", "xlstm-1.3b")  # families with no tensor-parallel forward
+NAMES_AT = {1: ("gemma-2b",), 2: ("gemma-2b", "qwen2.5-14b", "internvl2-76b"),
+            4: ("gemma-2b", "olmoe-1b-7b")}
+GAINED_TP = ("zamba2-7b", "xlstm-1.3b")  # families that gained a tensor-parallel forward
 
 
 @lru_cache(maxsize=None)
@@ -125,28 +128,35 @@ def test_kv_heads_for_local_query_heads():
 
 
 @lru_cache(maxsize=None)
-def _refusals():
-    (got, _) = run_ranks(workers.tp_refuses_families, 2, REFUSING, device="cpu", timeout=120)
+def _value_and_grad_on_a_model_axis():
+    (got, _) = run_ranks(workers.tp_value_and_grad_families, 2, GAINED_TP, device="cpu",
+                         timeout=120)
     return got
 
 
-@pytest.mark.parametrize("name", REFUSING)
+@pytest.mark.parametrize("name", GAINED_TP)
 def test_families_without_a_tp_forward_refuse_a_model_axis(name):
-    """A ``value_and_grad`` on a 2-rank ``model`` mesh raises before any
-    collective, naming the item that waits."""
-    msg, issued = _refusals()[name]
-    assert msg is not None and "11b" in msg, msg
-    assert issued == []
+    """The name is the one this test had while these families refused a
+    2-rank ``model`` mesh.  They have a tensor-parallel forward now: the
+    test checks that a ``value_and_grad`` there runs, with no refusal,
+    through the ``model`` axis's collectives (``tests/test_torch_tp_hybrid.py``
+    and ``tests/test_torch_tp_families.py`` hold its results to the
+    reference's)."""
+    msg, issued = _value_and_grad_on_a_model_axis()[name]
+    assert msg is None, msg
+    assert "all_reduce" in issued and "all_gather" in issued
 
 
 def test_engine_refuses_what_waits():
+    """The engine on a ``data``/``pod`` axis waits for ``serve_param_fsdp``;
+    the VLM and tensor-parallel replicas no longer wait."""
     model = build_model(tconfigs.get_config("gemma-2b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="11b"):
+    with pytest.raises(NotImplementedError, match="serve_param_fsdp.*11b"):
         ServeEngine(model, None, EngineConfig(n_slots=2, max_len=16,
                                               mesh=Mesh((2, 1), ("data", "model"))))
     vlm = build_model(tconfigs.get_config("internvl2-76b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="11b"):
+    with pytest.raises(RuntimeError, match="abstract"):  # past the refusal, to placement
         ServeEngine(vlm, None, EngineConfig(n_slots=2, max_len=16,
                                             mesh=Mesh((2,), ("model",))))
-    with pytest.raises(NotImplementedError, match="11b"):
-        replica_meshes(2, tp=2, devices=["cpu", "cpu"])
+    cpu = torch.device("cpu")
+    assert replica_meshes(2, tp=2, devices=["cpu", "cpu"]) == [(cpu, cpu), (cpu, cpu)]

@@ -199,11 +199,12 @@ def tp_engines(rank, tp, cases, prompts, max_new):
     return out
 
 
-def tp_refuses_families(rank, names):
+def tp_value_and_grad_families(rank, names):
     """For each name: a ``value_and_grad`` of its ``reduced()`` model on a
-    2-rank ``model`` mesh must raise ``NotImplementedError`` before any
-    collective.  Returns each name's message and the collectives issued."""
-    from repro_torch.dist import activation_sharding, collectives
+    2-rank ``model`` mesh, its params placed by ``param_specs``.  Returns
+    each name's ``NotImplementedError`` message (None: it ran) and the
+    collectives it issued."""
+    from repro_torch.dist import activation_sharding, collectives, param_specs
     from repro_torch.train.step import value_and_grad
 
     mesh = Mesh((2,), ("model",)).bind()
@@ -218,8 +219,10 @@ def tp_refuses_families(rank, names):
             cfg = get_config(name).reduced()
             model = build_model(cfg, device="cpu")
             params = model.init(torch.Generator().manual_seed(0))
+            params = shard_tree(params, param_specs(params, cfg, mesh))
             batch = {"tokens": torch.ones((2, 8), dtype=torch.int32),
                      "targets": torch.ones((2, 8), dtype=torch.int32)}
+            issued.clear()
             with activation_sharding(mesh):
                 try:
                     value_and_grad(model.loss_fn, params, batch)
@@ -509,3 +512,125 @@ def card_2d_step(rank, cfg, params, batch, lr):
             "launches": _util.launch_counts(),
             "device": state.params["embed"].device.type,
             "params": tree_map(lambda t: t.cpu(), gather_tree(state.params, lay.params))}
+
+
+# ---------------------------------------------------------------------------
+# the hybrid, xLSTM, encoder-decoder and VLM families on a `model` mesh
+# ---------------------------------------------------------------------------
+def family_forward(params, batch, cfg):
+    """The family's full-sequence logits (B, S, V) of ``batch``."""
+    from repro_torch.models import encdec, mamba, transformer, xlstm
+
+    if cfg.family == "hybrid":
+        return mamba.zamba_forward(params, batch["tokens"], cfg)
+    if cfg.family == "ssm":
+        return xlstm.xlstm_forward(params, batch["tokens"], cfg)
+    if cfg.family == "encdec":
+        enc_out = encdec.encode(params, batch["frontend"], cfg)
+        return encdec.decode_train(params, batch["tokens"], enc_out, cfg)
+    return transformer.lm_forward(params, batch["tokens"], cfg, batch.get("frontend"))[0]
+
+
+def prompt_len(cfg, batch) -> int:
+    """The positions a prefill of ``batch`` fills: the tokens, and a VLM's
+    frontend before them."""
+    extra = batch["frontend"].shape[1] if cfg.family == "vlm" else 0
+    return batch["tokens"].shape[1] + extra
+
+
+def tp_family(rank, tp, cases, steps):
+    """For each (name, np_params, config overrides, batch) of ``cases``, on
+    a ``model`` mesh of ``tp`` ranks from the global params placed by
+    ``param_specs``: the forward's logits, the loss with this rank's grads
+    and each leaf's slice, the prefill's last logits and its cache gathered
+    by ``cache_shardings``, and ``steps`` greedy ``decode_step``s' logits,
+    tokens and final cache, gathered the same way."""
+    from repro_torch.dist import activation_sharding, cache_shardings, param_specs
+    from repro_torch.train.step import value_and_grad
+
+    mesh = Mesh((tp,), ("model",)).bind()
+    out = []
+    for name, np_params, kw, batch in cases:
+        cfg = get_config(name).reduced().replace(**kw)
+        model = build_model(cfg, device="cpu")
+        params = params_from_jax(np_params, cfg, device="cpu")
+        specs = param_specs(params, cfg, mesh)
+        local = shard_tree(params, specs)
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        feed = {k: v for k, v in tb.items() if k != "targets"}
+        b, s = tb["tokens"].shape[0], prompt_len(cfg, batch)
+        cspecs = cache_shardings(model.cache_specs(b, s + steps), cfg, mesh)
+        res = {}
+        with activation_sharding(mesh):
+            with torch.no_grad():
+                res["logits"] = family_forward(local, tb, cfg).numpy()
+            loss, grads = value_and_grad(model.loss_fn, local, tb)
+            res.update(loss=float(loss), grads=_np(grads), slices=_local_slices(specs, params))
+            with torch.no_grad():
+                last, cache = model.prefill(local, feed, s + steps)
+                res["cache_local"] = tree_map(lambda t: tuple(t.shape), cache)
+                res["prefill_last"] = last.numpy()
+                res["prefill_cache"] = _np(gather_tree(cache, cspecs))
+                tok, rows, toks = last.argmax(-1), [], []
+                for i in range(steps):
+                    pos = torch.full((b,), s + i, dtype=torch.int32)
+                    logits, cache = model.decode_step(local, cache, tok.to(torch.int32), pos)
+                    tok = logits.argmax(-1)
+                    rows.append(logits.numpy())
+                    toks.append(tok.numpy())
+                res.update(step_logits=np.stack(rows), tokens=np.stack(toks),
+                           final_cache=_np(gather_tree(cache, cspecs)))
+        out.append(res)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# a rank group kept between calls
+# ---------------------------------------------------------------------------
+def remember(rank, x):
+    """Keep ``x`` times (rank + 1) in this rank's state; the world's sum."""
+    import torch.distributed as tdist
+
+    from repro_torch.dist import rank_state
+
+    rank_state()["x"] = torch.tensor(float(x * (rank + 1)))
+    total = rank_state()["x"].clone()
+    tdist.all_reduce(total)
+    return float(total)
+
+
+def recall(rank):
+    from repro_torch.dist import rank_state
+
+    return float(rank_state()["x"]), len(rank_state())
+
+
+def fail_on_rank(rank, bad):
+    if rank == bad:
+        raise ValueError(f"rank {bad} fails on purpose")
+    return rank
+
+
+def fail_engine_step(rank, bad, after, how):
+    """Make rank ``bad``'s serving engine (a tensor-parallel replica's)
+    fail at its ``after``-th step from now: raise (``how="raise"``), or end
+    its process (``how="exit"``)."""
+    import os
+
+    from repro_torch.dist import rank_state
+
+    if rank != bad:
+        return rank
+    engine = rank_state()["engine"]
+    step, left = engine.step, [after]
+
+    def failing():
+        left[0] -= 1
+        if left[0] <= 0:
+            if how == "exit":
+                os._exit(1)
+            raise RuntimeError(f"rank {bad} fails on purpose")
+        return step()
+
+    engine.step = failing
+    return rank

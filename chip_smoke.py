@@ -243,7 +243,25 @@ Phases, in order; any failure exits non-zero before the final line:
    (each flip printed); both ranks' tokens equal; a requeued stream keeps
    the output it had.  Times, the bytes each call handed the collectives a
    rank, each rank's peak, tok/s and TTFT printed;
-16. a ``kernels`` line, one JSON line of per-kernel numbers (the flash and
+16. the engine on a mesh with a ``data`` axis, and the dry run against the
+   card: (a) gemma-2b at full width and depth served on (data 2, model 2),
+   four ranks sharing the card over gloo, phase 10's requests through a
+   dense engine of SERVE_SLOTS lanes (SERVE_SLOTS / 2 a data row, each rank
+   computing its row's lanes), the params placed by the engine one rank at
+   a time: every rank's streams equal, and equal to phase 10's dense
+   engine's under the token rule; each rank's local param and cache leaf
+   element counts equal those of the dry run's decode cell (``launch.cell``,
+   B = SERVE_SLOTS, S = SERVE_MAX_LEN) on the same mesh, exactly; tok/s,
+   TTFT, peaks, the bytes (the engine's fp32 params beside the cell's bf16
+   ones) and the launches (none expected: the steps are plain torch)
+   printed; (b) the dry run (``Cell.lower`` at rank 0 on ``meta``, in this
+   process) of phase 14 (a)'s train cell and phase 13 (a)'s tp 2 prefill
+   cell: their recorded collectives equal what those phases' rank 0 called
+   (the top-level calls, ``dist.collectives.recording``), op by op, in
+   calls and payload bytes, and the train cell's analytic state bytes the
+   rank's stored state bytes; each analytic peak printed beside the
+   measured one;
+17. a ``kernels`` line, one JSON line of per-kernel numbers (the flash and
    ssm_scan launches count phases 13 and 15's ranks', and list phase 15's
    a leg and a rank at a time, ``launches_tp_ranks``), and the final
    ``{"ok": true, "device": ...}`` line.
@@ -3159,7 +3177,7 @@ def tp_rank(rank, conf, tokens, prompts, prefix, want_tokens) -> dict:
     import torch
 
     from repro_torch.core.timing import percentile
-    from repro_torch.dist import activation_sharding, param_specs, shard_tree
+    from repro_torch.dist import activation_sharding, collectives, param_specs, shard_tree
     from repro_torch.kernels import _util, guard
     from repro_torch.kernels.api import kernel_policy
     from repro_torch.models import build_model
@@ -3190,8 +3208,11 @@ def tp_rank(rank, conf, tokens, prompts, prefix, want_tokens) -> dict:
     batch = {"tokens": torch.as_tensor(tokens, device=dev)}
     with torch.inference_mode(), activation_sharding(mesh):
         model.prefill(local, {"tokens": batch["tokens"][:1, :64]})  # warm-up, unguarded
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
     with guard.isolated(guard.GuardConfig(hw=conf["hw"])), torch.inference_mode(), \
-            kernel_policy(guard="shadow"), activation_sharding(mesh):
+            kernel_policy(guard="shadow"), activation_sharding(mesh), \
+            collectives.recording(dry=False) as rec:
         _util.reset_launch_counts()
         sync()
         t0 = time.perf_counter()
@@ -3202,6 +3223,8 @@ def tp_rank(rank, conf, tokens, prompts, prefix, want_tokens) -> dict:
         out["guard"] = guard.metrics().summary()
         out["shadowed"] = dict(guard.state()._calls)
         out["quarantined"] = list(guard.quarantined_ops())
+    out["prefill_collectives"] = rec.by_op()  # the top-level calls, for phase 16 (b)
+    out["prefill_max_memory_allocated"] = torch.cuda.max_memory_allocated(dev) if on_card else None
     out["prefill_last"] = last.float().cpu()
     out["cache_kv_heads"] = int(cache["k"].shape[3])
     del local, cache
@@ -3598,6 +3621,8 @@ def dist_path(torch, dev, tp1) -> dict:
                       backend="gloo", device=dev.type, timeout=DIST_TIMEOUT)
     for r in ranks:
         add_counts(counts, r["prefill_launches"])
+    MEASURED["tp_prefill"] = {k: ranks[0][k] for k in (
+        "prefill_collectives", "prefill_max_memory_allocated", "param_bytes_local")}
     tp = {"prefill_s": [r["prefill_s"] for r in ranks],
           "launches": [r["prefill_launches"] for r in ranks],
           "shadowed": [r["shadowed"] for r in ranks],
@@ -3855,7 +3880,8 @@ def tp_train_rank(rank, conf, arch, layers, batch, ref_path) -> dict:
         sync = torch.cuda.synchronize if on_card else (lambda: None)
         sync()
         t0 = time.perf_counter()
-        state, m = step(state, tb)
+        with collectives.recording(dry=False) as rec:  # top-level calls, for phase 16 (b)
+            state, m = step(state, tb)
         sync()
         step_s = time.perf_counter() - t0
     finally:
@@ -3863,6 +3889,7 @@ def tp_train_rank(rank, conf, arch, layers, batch, ref_path) -> dict:
             setattr(collectives, name, fn)
     out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "step_s": step_s,
            "launches": _util.launch_counts(), "collectives": stats,
+           "collectives_top": rec.by_op(),
            "state_bytes_local": tree_bytes(state),
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev) if on_card else None}
     if on_card:  # the card's use while every rank holds its memory, and each allocator's part
@@ -3933,6 +3960,8 @@ def tp_train_path(torch, dev) -> dict:
                               backend="gloo", device=dev.type, timeout=DIST_TIMEOUT)
         for r in ranks:
             add_counts(counts, r["launches"])
+        MEASURED.setdefault("tp_train", {})[arch] = {"layers": layers, **{k: ranks[0][k] for k in (
+            "collectives_top", "state_bytes_local", "max_memory_allocated")}}
         res = {"layers": layers, "one_process": {k: v for k, v in one.items() if k != "launches"},
                "loss": [r["loss"] for r in ranks], "grad_norm": [r["grad_norm"] for r in ranks],
                "step_s": [r["step_s"] for r in ranks],
@@ -4495,6 +4524,211 @@ def tp_families_path(torch, dev, want_tokens) -> tuple:
     return counts, by_leg
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the engine on a (data, model) mesh; the dry run against phases 13-14
+# ---------------------------------------------------------------------------
+DP_ENGINE_MESH = (2, 2)  # (data, model): SERVE_SLOTS lanes, half a data row
+# phase 13 (a)'s and 14 (a)'s rank-0 readings that phase 16 (b) holds its dry
+# runs against: the top-level collectives, state bytes and peaks
+MEASURED: dict = {}
+
+
+def dp_engine_rank(rank, conf, prompts, want_tokens) -> dict:
+    """Phase 16 (a) on one rank of (data 2, model 2): gemma-2b's params made
+    from the seed one rank at a time and placed by the engine
+    (``param_specs``: split over ``model``, whole over ``data``), the dense
+    cache by ``cache_shardings`` (the lanes over ``data``), phase 10's
+    requests served; the launches, times, peak, each param and cache leaf's
+    local element count and bytes.  Where a stream differs from
+    ``want_tokens``, this rank's logits row at the first differing position
+    comes back for the near-tie rule (gemma-2b's one KV head is whole over
+    ``model``, so the lane's cache needs no placing)."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.dist import activation_sharding, collectives
+    from repro_torch.dist.sharding import tree_leaves
+    from repro_torch.kernels import _util
+    from repro_torch.models import build_model
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    use_conf(conf)
+    mesh = rank_mesh(DP_ENGINE_MESH, ("data", "model"), conf)
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = dist_cfg(conf)
+    model = build_model(cfg, device=dev)
+    ecfg = EngineConfig(n_slots=conf["slots"], max_len=conf["max_len"],
+                        prefill_chunk=conf["chunk"], degrade=False, mesh=mesh)
+    eng = None
+    for turn in range(mesh.size):  # one rank at a time holds the whole tree
+        if turn == rank:
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            eng = ServeEngine(model, params, ecfg)
+            del params
+            if on_card:
+                torch.cuda.empty_cache()
+        tdist.barrier()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        eng.submit(prompts[0][:conf["prefix_len"] + 8], 4)  # warm-up
+        eng.run()
+        eng.reset_metrics()
+        _util.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        with collectives.recording(dry=False) as rec:
+            sessions = [eng.submit(p, conf["new"]) for p in prompts]
+            eng.run()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = _util.launch_counts()
+    s = eng.summary()
+    out = {"tokens": [x.out for x in sessions], "finished": [x.finish_reason for x in sessions],
+           "wall_s": wall, "throughput_tok_s": s["throughput_tok_s"],
+           "ttft_ms_p50": s["ttft_ms_p50"], "tok_latency_ms_p50": s["tok_latency_ms_p50"],
+           "launches": launches, "lanes": [eng._lanes.start, eng._lanes.stop],
+           "collectives": rec.by_op(),
+           "param_numel": [t.numel() for t in tree_leaves(eng.params)],
+           "cache_numel": [t.numel() for t in tree_leaves(eng.cache)],
+           "param_bytes": tree_bytes(eng.params), "cache_bytes": tree_bytes(eng.cache),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev) if on_card else None,
+           "rows": {}}
+    for i, (got, want) in enumerate(zip(out["tokens"], want_tokens)):
+        if got != want:  # this rank's row where the stream first differs
+            j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+                     min(len(got), len(want)))
+            with torch.inference_mode(), activation_sharding(mesh):
+                row = lane_logits(torch, model, eng.params, prompts[i], want[:j], dev)
+            out["rows"][i] = (j, row.cpu())
+    return out
+
+
+def dp_engine_leg(torch, dev, conf, want_tokens) -> dict:
+    """Phase 16 (a): every rank's streams equal and within the token rule of
+    phase 10's dense engine's; each rank's local param and cache element
+    counts equal the dry run's decode cell at (B = SERVE_SLOTS, S =
+    SERVE_MAX_LEN) on the same mesh, exactly.  Returns the launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_shape
+    from repro_torch.dist import run_ranks
+    from repro_torch.dist.sharding import tree_leaves
+    from repro_torch.launch.cell import analytic_memory, build_cell
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = dist_cfg(conf)
+    prompts, _ = serve_prompts(cfg)
+    ranks = run_ranks(dp_engine_rank, DP_ENGINE_MESH[0] * DP_ENGINE_MESH[1], conf, prompts,
+                      want_tokens, backend="gloo", device=dev.type, timeout=DIST_TIMEOUT)
+    got = ranks[0]["tokens"]
+    if any(r["tokens"] != got for r in ranks):
+        raise AssertionError("dp engine: the ranks sampled different tokens")
+    if any(f != "max_new_tokens" for r in ranks for f in r["finished"]):
+        raise AssertionError("dp engine: not every request finished")
+    flips = tp_flip_rule(torch, dev, conf, prompts, want_tokens, got, ranks[0]["rows"])
+    shape = dataclasses.replace(get_shape("decode_32k"), name="serve", seq_len=conf["max_len"],
+                                global_batch=conf["slots"])
+    cell = build_cell(cfg, shape, Mesh(DP_ENGINE_MESH, ("data", "model")))
+    mem = analytic_memory(cell)
+    counts = {}
+    for rank, r in enumerate(ranks):
+        add_counts(counts, r["launches"])
+        params, cache = cell.local_args(rank)[:2]
+        want = ([t.numel() for t in tree_leaves(params)], [t.numel() for t in tree_leaves(cache)])
+        if (r["param_numel"], r["cache_numel"]) != want:
+            raise AssertionError(f"dp engine: rank {rank}'s local element counts "
+                                 f"{r['param_numel']}, {r['cache_numel']} are not the dry run's "
+                                 f"decode cell's {want}")
+    res = {"mesh": dict(zip(("data", "model"), DP_ENGINE_MESH)),
+           "identity": "identical" if not flips else "near-tie flips", "flips": flips,
+           "lanes": [r["lanes"] for r in ranks],
+           "throughput_tok_s": [r["throughput_tok_s"] for r in ranks],
+           "ttft_ms_p50": [r["ttft_ms_p50"] for r in ranks],
+           "tok_latency_ms_p50": [r["tok_latency_ms_p50"] for r in ranks],
+           "wall_s": [r["wall_s"] for r in ranks],
+           "collectives_rank0": ranks[0]["collectives"],
+           "host_gb_a_rank": [sum(c["bytes"] for c in r["collectives"].values()) / 1e9
+                              for r in ranks],
+           "max_memory_allocated_gb": [None if r["max_memory_allocated"] is None
+                                       else r["max_memory_allocated"] / 1e9 for r in ranks],
+           "param_numel_by_rank": [r["param_numel"] for r in ranks],
+           "cache_numel_by_rank": [r["cache_numel"] for r in ranks],
+           "element_counts": "equal to the dry run's decode cell, every leaf, every rank",
+           "param_bytes_engine_fp32": [r["param_bytes"] for r in ranks],
+           "param_bytes_dry_run_bf16": mem["param_bytes"],
+           "cache_bytes_engine": [r["cache_bytes"] for r in ranks],
+           "cache_bytes_dry_run": mem["cache_bytes"],
+           "analytic_peak_bytes": mem["analytic_peak_bytes"],
+           "launches": [r["launches"] for r in ranks]}
+    print(f"dp engine gemma-2b on (data 2, model 2), {len(prompts)} requests, {conf['slots']} "
+          "slots (four ranks on one card, gloo through host memory): " + json.dumps(res),
+          flush=True)
+    return counts
+
+
+def dry_run_checks(conf, measured) -> None:
+    """Phase 16 (b): the dry run (``Cell.lower`` at rank 0, on ``meta`` in
+    this process) of phase 14 (a)'s train cell and phase 13 (a)'s tp 2
+    prefill cell; their top-level collectives must equal what those phases'
+    rank 0 called on the card, op by op, in calls and payload bytes, and the
+    train cell's ``analytic_memory`` state bytes the rank's stored state
+    bytes.  The analytic peak is printed beside the measured one (its
+    activation terms are the reference's formulas, so it is not held)."""
+    import dataclasses
+
+    from repro_torch.configs import get_shape
+    from repro_torch.dist import collectives
+    from repro_torch.launch.cell import analytic_memory, build_cell
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.perfmodel import recorded_stats
+
+    train = measured["tp_train"]["gemma-2b"]
+    legs = (
+        ("phase 14 (a) train", dist_cfg({**conf, "arch": "gemma-2b"}, n_layers=train["layers"],
+                                        dtype="float32"),
+         dataclasses.replace(get_shape("train_4k"), name="tp_train", seq_len=TP_TRAIN_SEQ,
+                             global_batch=TP_TRAIN_BATCH),
+         Mesh(TP_TRAIN_MESH, ("data", "model")), train["collectives_top"],
+         train["max_memory_allocated"]),
+        ("phase 13 (a) prefill", dist_cfg(conf, attn_impl="pallas"),
+         dataclasses.replace(get_shape("prefill_32k"), name="tp_prefill", seq_len=LM_PROMPT,
+                             global_batch=LM_BATCH),
+         Mesh((2,), ("model",)), measured["tp_prefill"]["prefill_collectives"],
+         measured["tp_prefill"]["prefill_max_memory_allocated"]))
+    for name, cfg, shape, mesh, want, peak in legs:
+        t0 = time.perf_counter()
+        cell = build_cell(cfg, shape, mesh)
+        low = cell.lower(rank=0)
+        got = collectives.by_op(low.calls)
+        mem = analytic_memory(cell)
+        res = {"dry_run_s": time.perf_counter() - t0, "collectives": got, "measured": want,
+               "ring_bytes": recorded_stats(low.calls).summary(), "analytic_memory": mem,
+               "measured_peak_bytes": peak,
+               "analytic_over_measured_peak": (mem["analytic_peak_bytes"] / peak if peak
+                                               else None)}
+        if "state_bytes" in mem:
+            res["measured_state_bytes"] = train["state_bytes_local"]
+        print(f"dry run of {name}'s cell (rank 0 on meta): " + json.dumps(res), flush=True)
+        if got != want:
+            raise AssertionError(f"dry run {name}: recorded {got}, the card's rank 0 called {want}")
+        if "state_bytes" in mem and mem["state_bytes"] != train["state_bytes_local"]:
+            raise AssertionError(f"dry run {name}: analytic state bytes {mem['state_bytes']}, "
+                                 f"the rank holds {train['state_bytes_local']}")
+
+
+def dp_path(torch, dev, want_tokens) -> dict:
+    """Phase 16 (see the module docstring).  Returns the launch counts."""
+    phase_start = time.perf_counter()
+    conf = dist_conf(dev)
+    counts = dp_engine_leg(torch, dev, conf, want_tokens)
+    dry_run_checks(conf, MEASURED)
+    print(f"dp engine and dry run: phase {time.perf_counter() - phase_start:.1f} s", flush=True)
+    return counts
+
+
 def tp1_reference(torch, dev, cfg, model, params, tokens) -> dict:
     """Phase 13's one-rank reference, taken while phase 10's params are
     alive: the 4 x 1000 flash prefill's last logits, on the host."""
@@ -4597,6 +4831,9 @@ def main() -> int:
     for name in ("flash_attention", "ssm_scan"):  # phase 15's, a rank at a time
         rows[name]["launches_tp_ranks"] = {leg: [c.get(name, 0) for c in ranks]
                                            for leg, ranks in tp_by_leg.items()}
+    gc.collect()
+    torch.cuda.empty_cache()  # phase 16's ranks share the card
+    add_counts(counts, dp_path(torch, dev, tp1["tokens"]))
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print("kernels: " + " ".join(KERNELS))

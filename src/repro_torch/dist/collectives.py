@@ -9,11 +9,115 @@ version takes, and data that only moves goes as its bytes (gloo versions
 differ in the dtypes they take: torch 2.11's gloo refuses int16).  Sums of
 16-bit floats are taken in fp32 (one rounding, as a single device's
 fp32-accumulated sum rounds once).
+
+Under :func:`recording` every call of the six is recorded as a
+:class:`CollectiveCall`; a dry recording (the default) sends nothing and
+returns a ``meta`` tensor of the shape and dtype the call returns, so one
+rank's program runs on a mesh placed without a world (``Mesh.place``).
+Only the calls the program makes are recorded, not those a collective
+makes inside itself (gloo's reduce-scatter all-reduces).
 """
 from __future__ import annotations
 
+import functools
+from contextlib import contextmanager
+from typing import NamedTuple, Optional
+
 import torch
 import torch.distributed as dist
+
+
+class CollectiveCall(NamedTuple):
+    """One recorded call: ``payload_bytes`` are the input's bytes,
+    ``wire_bytes`` those of the operand the NCCL path reduces or moves (a
+    16-bit float sum goes in fp32)."""
+
+    op: str
+    axis: str
+    n: int
+    payload_bytes: int
+    wire_bytes: int
+
+
+class Recorder:
+    """The calls made under :func:`recording`, in order."""
+
+    def __init__(self, dry: bool):
+        self.dry = dry
+        self.calls: list = []
+        self._depth = 0  # > 0 inside a recorded call that runs
+
+    def by_op(self) -> dict:
+        return by_op(self.calls)
+
+
+def by_op(calls) -> dict:
+    """{op: {"calls": n, "bytes": payload bytes}} of recorded calls."""
+    out: dict = {}
+    for c in calls:
+        s = out.setdefault(c.op, {"calls": 0, "bytes": 0})
+        s["calls"] += 1
+        s["bytes"] += c.payload_bytes
+    return out
+
+
+_recorder: Optional[Recorder] = None
+
+
+@contextmanager
+def recording(dry: bool = True):
+    """Record every collective the program calls.  ``dry``: send nothing and
+    return ``meta`` results (the mesh needs no process group); else the
+    calls run as they would and are recorded too."""
+    global _recorder
+    prev, rec = _recorder, Recorder(dry)
+    _recorder = rec
+    try:
+        yield rec
+    finally:
+        _recorder = prev
+
+
+def _sums(x: torch.Tensor) -> torch.dtype:
+    """The dtype a sum of ``x`` over ranks is taken in."""
+    return torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
+
+
+def _meta(shape, x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=x.dtype, device="meta")
+
+
+def _resized(x: torch.Tensor, dim: int, size: int) -> list:
+    shape = list(x.shape)
+    shape[dim] = size
+    return shape
+
+
+def _recorded(summed: bool, meta_result):
+    """Record a call under :func:`recording`; a dry one returns
+    ``meta_result(x, mesh, axis, *args)``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(x, mesh, axis, *args, **kw):
+            rec = _recorder
+            if rec is None or rec._depth:
+                return fn(x, mesh, axis, *args, **kw)
+            payload = x.numel() * x.element_size()
+            wire = x.numel() * _sums(x).itemsize if summed else payload
+            rec.calls.append(CollectiveCall(fn.__name__, axis, axis_size(mesh, axis), payload,
+                                            wire))
+            if rec.dry:
+                return meta_result(x, mesh, axis, *args, **kw)
+            rec._depth += 1
+            try:
+                return fn(x, mesh, axis, *args, **kw)
+            finally:
+                rec._depth -= 1
+
+        return run
+
+    return wrap
 
 
 def _gloo_host(x: torch.Tensor, group) -> bool:
@@ -36,15 +140,17 @@ def axis_size(mesh, axis: str) -> int:
     return mesh.shape.get(axis, 1)
 
 
+@_recorded(True, lambda x, mesh, axis: _meta(x.shape, x))
 def all_reduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Sum of ``x`` over the ``axis`` ranks, in ``x``'s dtype."""
     group = mesh.group(axis)
-    acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
-    y = x.to("cpu" if _gloo_host(x, group) else x.device, acc, copy=True)
+    y = x.to("cpu" if _gloo_host(x, group) else x.device, _sums(x), copy=True)
     dist.all_reduce(y, group=group)
     return y.to(x.device, x.dtype)
 
 
+@_recorded(False, lambda x, mesh, axis, dim=0: _meta(
+    _resized(x, dim, x.shape[dim] * axis_size(mesh, axis)), x))
 def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """The ``axis`` ranks' ``x`` concatenated along ``dim``, in rank order."""
     group = mesh.group(axis)
@@ -54,6 +160,8 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     return torch.cat([_unwire(p, x) for p in parts], dim=dim)
 
 
+@_recorded(False, lambda x, mesh, axis, dim=0: _meta(
+    _resized(x, dim, x.shape[dim] // axis_size(mesh, axis)), x))
 def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """This rank's ``dim`` slice (its ``axis`` index of ``n`` equal ones) of
     the sum of ``x`` over the ``axis`` ranks.  NCCL reduce-scatters; over
@@ -69,6 +177,7 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tens
     return out.movedim(0, dim).contiguous()
 
 
+@_recorded(False, lambda x, mesh, axis, src: _meta(x.shape, x))
 def broadcast(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
     """The ``x`` of the rank at index ``src`` of the ``axis`` line, on every
     rank of it; the other ranks' ``x`` gives only the shape and dtype."""
@@ -82,16 +191,18 @@ def broadcast(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
     return _unwire(bits, x)
 
 
+@_recorded(True, lambda x, mesh, axis, dst: (_meta(x.shape, x) if mesh.index(axis) == dst
+                                             else None))
 def reduce(x: torch.Tensor, mesh, axis: str, dst: int):
     """Sum of ``x`` over the ``axis`` ranks, in ``x``'s dtype, on the rank
     at index ``dst`` of the line; None on the others."""
     group = mesh.group(axis)
-    acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
-    y = x.to("cpu" if _gloo_host(x, group) else x.device, acc, copy=True)
+    y = x.to("cpu" if _gloo_host(x, group) else x.device, _sums(x), copy=True)
     dist.reduce(y, mesh.axis_ranks(axis)[dst], group=group)
     return y.to(x.device, x.dtype) if mesh.index(axis) == dst else None
 
 
+@_recorded(False, lambda x, mesh, axis, step=1: _meta(x.shape, x))
 def shift(x: torch.Tensor, mesh, axis: str, step: int = 1) -> torch.Tensor:
     """``x`` sent ``step`` places along the ``axis`` ring; returns what the
     rank ``step`` places back sent (``jax.lax.ppermute`` over the ring)."""

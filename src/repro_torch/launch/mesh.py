@@ -10,7 +10,11 @@ A :class:`Mesh` is first only a shape and axis names, so the sharding rules,
 the tests and the dry run work in one process at any size, (2, 16, 16)
 included.  :meth:`Mesh.bind`, called on every rank of a world of the mesh's
 size, creates one process group per axis line and fixes this rank's
-coordinates and device.  ``torch.distributed.device_mesh`` is not used: a
+coordinates and device.  :meth:`Mesh.place` fixes one rank's coordinates
+and device with no world and no process group: the dry run
+(``launch/dryrun.py``) runs that rank's program on the ``meta`` device, its
+collectives recorded, not sent (``dist.collectives.recording``).
+``torch.distributed.device_mesh`` is not used: a
 ``DeviceMesh`` cannot exist without a process group, and its ``"cuda"``
 meshes assume NCCL, which refuses two ranks on one GPU.
 """
@@ -83,8 +87,23 @@ class Mesh:
                     self._groups[axis], self._lines[axis] = group, list(ranks)
         return self
 
+    def place(self, rank: int, device="meta") -> "Mesh":
+        """Fix this mesh's rank and device with no process group (no world
+        is needed): ``index`` and ``axis_ranks`` answer for ``rank``;
+        ``group`` raises, so a collective runs only under
+        ``dist.collectives.recording()``."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not on {self!r}")
+        self.rank, self.device = rank, torch.device(device)
+        self._groups = {}
+        self._lines = {axis: self.line(rank, axis) for axis in self.axis_names}
+        return self
+
     def group(self, axis: str):
         self._need_bound()
+        if axis not in self._groups:
+            raise RuntimeError(f"{self!r} was placed without a world: it has no process group "
+                               "(record its collectives: dist.collectives.recording())")
         return self._groups[axis]
 
     def index(self, axis: str) -> int:
@@ -99,7 +118,8 @@ class Mesh:
 
     def _need_bound(self) -> None:
         if self.rank is None:
-            raise RuntimeError(f"{self!r} is abstract: call bind() on every rank first")
+            raise RuntimeError(f"{self!r} is abstract: call bind() on every rank first "
+                               "(or place() one rank)")
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -37,7 +37,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.dist import tensor_parallel as tp
 from repro_torch.dist import zero
 
@@ -306,3 +306,33 @@ def _zamba_prefill(params, tokens, cfg, max_len):
     logits = mamba.zamba_logits(params, x, cfg)
     cache["x0"] = x0[:, -1]
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# input specs per shape cell (meta tensors: no storage)
+# ---------------------------------------------------------------------------
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Stand-ins for every input of the step function a dry-run cell runs,
+    as ``meta`` tensors: the reference's keys, shapes and dtypes."""
+    i32 = torch.int32
+    b, s = shape.global_batch, shape.seq_len
+    dt = as_dtype(cfg.dtype)
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        s_text = s - (cfg.frontend_len if cfg.family == "vlm" else 0)
+        specs = {"tokens": meta((b, s_text), i32)}
+        if shape.kind == "train":
+            specs["targets"] = meta((b, s_text), i32)
+        if cfg.family in ("vlm", "encdec"):
+            specs["frontend"] = meta((b, cfg.frontend_len, cfg.d_model), dt)
+        return specs
+
+    # decode: one new token against a cache of length seq_len
+    return {
+        "cache": build_model(cfg, device="meta").cache_specs(b, s),
+        "tokens": meta((b,), i32),
+        "pos": meta((b,), i32),
+    }

@@ -78,8 +78,11 @@ import numpy as np
 import torch
 
 from repro_torch import dist as rdist
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import local_index, tree_leaves
 from repro_torch.kernels import guard as kguard
 from repro_torch.kernels.api import BACKENDS, current_policy, default_backend, kernel_policy
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.api import ModelApi
 
 from .metrics import EngineMetrics
@@ -174,18 +177,23 @@ class EngineConfig:
       slots against real memory.  Must hold at least one worst-case lane.
     - ``backend`` / ``autotune`` — kernel policy scoped around the steps
       (``None``: ambient policy; the backend then follows the model's device).
-    - ``mesh`` — a bound 1-D ``model`` :class:`~repro_torch.launch.mesh.Mesh`
-      for tensor-parallel serving (None: one device).  Every rank of the
-      mesh runs an engine with the same requests in the same order; params
-      are placed by ``dist.param_specs``, the cache by
-      ``dist.cache_shardings``/``paged_cache_shardings`` (KV heads on
-      ``model`` when divisible), and the steps run under
-      ``dist.activation_sharding(mesh)``.  Tokens come from the gathered
-      logits, so every rank samples the same ones.  Every family the
-      engine serves (dense, moe, vlm) runs on it; a ``data``/``pod`` axis
-      raises ``NotImplementedError``: placing the served params over
-      ``data`` too (the reference's ``serve_param_fsdp``) waits
-      (ROADMAP.md §1 item 11b).
+    - ``mesh`` — a bound :class:`~repro_torch.launch.mesh.Mesh` of any of
+      the ``pod``, ``data`` and ``model`` axes (None: one device).  Every
+      rank of the mesh runs an engine with the same requests in the same
+      order, and the same host logic (scheduler, slots, positions, finish,
+      preemption).  Params are placed by ``dist.param_specs``: split over
+      ``model``, whole over ``data`` and ``pod``.  The dense cache is
+      placed by ``dist.cache_shardings``: KV heads on ``model`` when
+      divisible, and the lanes on ``pod``/``data`` when ``n_slots`` divides
+      their size, each rank then computing its own lanes (else the lanes
+      stay whole and every rank computes them all).  The paged pool is
+      placed by ``dist.paged_cache_shardings``, its pages whole on every
+      rank: every ``pod``/``data`` rank computes every lane, so the copies
+      stay equal without a gather of the written entries.  The steps run
+      under ``dist.activation_sharding(mesh)``.  What the host reads is
+      the same on every rank: the decode step's logits are gathered over
+      the lane axes, a chunk's only at the rows that end a prompt, and the
+      sampler sees the global lanes.
     - ``eos_id`` — sampled token that finishes a request early.
     - ``sampler`` — logits -> token function (greedy default).
     - ``scheduler`` — stock admission policy name used when no
@@ -223,7 +231,7 @@ class EngineConfig:
     backend: Optional[str] = None  # kernel_policy backend (None: ambient)
     # kernel_policy autotune for engine steps (None: ambient; bool: forced)
     autotune: Optional[bool] = None
-    mesh: Optional[Any] = None  # tensor-parallel mesh (None: single device)
+    mesh: Optional[Any] = None  # a bound (pod, data, model) mesh (None: single device)
     eos_id: Optional[int] = None
     sampler: Callable = greedy
     scheduler: str = "fcfs"  # default policy when none is injected
@@ -321,12 +329,9 @@ class ServeEngine:
             raise UnsupportedFamilyError(model.cfg.family, missing="decode_chunk_paged")
         self.mesh = config.mesh
         if self.mesh is not None:
-            axes = set(getattr(self.mesh, "shape", ()))
-            if axes != {"model"}:
-                raise NotImplementedError(
-                    f"EngineConfig.mesh: tensor-parallel serving runs on a 1-D `model` "
-                    f"mesh; {self.mesh!r} would also place the served params over `data` "
-                    "(serve_param_fsdp), which waits (ROADMAP.md §1 item 11b)")
+            if not isinstance(self.mesh, Mesh):
+                raise TypeError(f"EngineConfig.mesh must be a repro_torch.launch.mesh.Mesh, "
+                                f"got {type(self.mesh).__name__}")
             if params is not None:  # each rank keeps its shard of the global params
                 params = rdist.shard_tree(params, rdist.param_specs(params, model.cfg,
                                                                      self.mesh))
@@ -385,32 +390,76 @@ class ServeEngine:
             self.page_tables: list = [[] for _ in range(config.n_slots)]
             self._bt = np.zeros((config.n_slots, self._table_width), np.int32)
             self._prefixes: dict = {}  # token tuple -> SharedPrefix
-            self.cache = self._place_cache(model.init_paged_cache(self.n_pages, ps),
-                                           rdist.paged_cache_shardings)
+            self.cache, _ = self._place_cache(model.init_paged_cache(self.n_pages, ps),
+                                              rdist.paged_cache_shardings)
+            self._lanes = slice(0, config.n_slots)  # every lane on every rank
+            self._lane_axes: tuple = ()
         else:
             self.n_pages = 0
             self._pad_pos = config.max_len
-            self.cache = self._place_cache(model.init_cache(config.n_slots, config.max_len),
-                                           rdist.cache_shardings)
+            self.cache, lanes = self._place_cache(
+                model.init_cache(config.n_slots, config.max_len), rdist.cache_shardings)
+            # this rank's lanes and the mesh axes they split over, by the
+            # cache's lane dim (the rule keeps it whole where n_slots does
+            # not divide them)
+            self._lanes, self._lane_axes = lanes
         self._decode, self._chunk = self._bind_steps()
         self.pos = torch.full((config.n_slots,), self._pad_pos if self.paged else 0,
                               dtype=torch.int32, device=self.device)
         self.metrics = EngineMetrics(config.n_slots, n_pages=self.n_pages)
 
     # ------------------------------------------------------------------
-    def _place_cache(self, cache, shardings_fn: Callable):
-        """This rank's shard of a fresh cache (the cache itself without a
-        mesh)."""
+    def _place_cache(self, cache, shardings_fn: Callable) -> tuple:
+        """(this rank's shard of a fresh cache, (its lanes, the axes they
+        split over)): the cache itself and every lane without a mesh."""
+        every = (slice(0, self.cfg.n_slots), ())
         if self.mesh is None:
-            return cache
-        return rdist.shard_tree(cache, shardings_fn(cache, self.model.cfg, self.mesh))
+            return cache, every
+        specs = shardings_fn(cache, self.model.cfg, self.mesh)
+        leaf, sh = tree_leaves(cache)[0], tree_leaves(specs)[0]
+        lanes = (local_index(sh, leaf.shape)[1], sh.dim_axes(leaf.ndim)[1])
+        return rdist.shard_tree(cache, specs), (lanes if lanes[1] else every)
+
+    def _gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
+        """The global lanes of ``x``, whose dim 0 holds this rank's: gathered
+        over the lane axes, the minor first (``dist.gather_tree``'s order)."""
+        for axis in reversed(self._lane_axes):
+            x = collectives.all_gather(x, self.mesh, axis, 0)
+        return x
 
     def _step_fns(self) -> tuple:
-        """The model's (decode, chunk) functions for this engine's layout."""
+        """The model's (decode, chunk) functions for this engine's layout.
+        Where the lanes split over ranks, each takes the global tokens and
+        positions and runs this rank's lanes; the decode step returns the
+        global logits, the chunk step this rank's (``_ending_rows`` gathers
+        what the host reads of them)."""
         m = self.model
         if self.paged:
             return m.decode_step_paged, m.decode_chunk_paged
-        return m.decode_step, m.decode_chunk
+        if not self._lane_axes:
+            return m.decode_step, m.decode_chunk
+        lanes = self._lanes
+
+        def decode(params, cache, tokens, pos):
+            logits, cache = m.decode_step(params, cache, tokens[lanes], pos[lanes])
+            return self._gather_lanes(logits), cache
+
+        def chunk(params, cache, tokens, positions):
+            return m.decode_chunk(params, cache, tokens[lanes], positions[lanes])
+
+        return decode, chunk
+
+    def _ending_rows(self, logits: torch.Tensor, rows: dict) -> torch.Tensor:
+        """(n_slots, V): row ``lane`` is the chunk step's ``logits`` at
+        ``rows[lane]`` for each lane in ``rows`` (the others are rows the
+        host does not read); gathered over the lane axes where they split."""
+        idx = np.zeros((self.cfg.n_slots,), np.int64)
+        for lane, j in rows.items():
+            idx[lane] = j
+        local = idx[self._lanes]
+        picked = logits[torch.arange(len(local), device=logits.device),
+                        torch.as_tensor(local).to(logits.device)]
+        return self._gather_lanes(picked)
 
     def _scoped(self, fn: Callable, backend: Optional[str] = None) -> Callable:
         """``fn`` bound to the config's kernel policy: a fresh closure that
@@ -1018,8 +1067,11 @@ class ServeEngine:
                 (lane, s, feed) for lane, s, feed, start in assignments
                 if c * chunk < len(feed) - start <= (c + 1) * chunk
             ]
+            if ending:
+                rows = self._ending_rows(
+                    logits, {lane: spans[lane] - 1 - c * chunk for lane, _, _ in ending})
             for lane, s, feed in ending:
-                row = logits[lane, spans[lane] - 1 - c * chunk]
+                row = rows[lane]
                 if self.cfg.nan_guard and not bool(torch.isfinite(row).all()):
                     if self._nan_attr_tick != self.tick:
                         self._nan_attr_tick = self.tick

@@ -403,9 +403,10 @@ def test_requeue_budget_and_engine_refusals(gemma):
     with pytest.raises(TypeError, match="Scheduler protocol"):
         tserve.ServeEngine(tmodel, tparams, tserve.EngineConfig(n_slots=1, max_len=16),
                            scheduler=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="must be a repro_torch.launch.mesh.Mesh") as ei:
         tserve.ServeEngine(tmodel, tparams,
                            tserve.EngineConfig(n_slots=1, max_len=16, mesh=object()))
+    assert "item" not in str(ei.value) and "ROADMAP" not in str(ei.value)
     zcfg = tconfigs.get_config("zamba2-7b").reduced()
     with pytest.raises(tserve.UnsupportedFamilyError, match="decode_chunk") as ei:
         tserve.ServeEngine(tbuild(zcfg, device="cpu"), None,

@@ -33,7 +33,7 @@ from repro.models import build_model as jbuild
 from repro_torch import configs as tconfigs
 from repro_torch.dist import run_ranks
 from repro_torch.dist import tensor_parallel as tp
-from repro_torch.dist.sharding import activation_sharding
+from repro_torch.dist.sharding import activation_sharding, tree_leaves
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import build_model
 from repro_torch.serve import EngineConfig, ServeEngine
@@ -148,12 +148,20 @@ def test_families_without_a_tp_forward_refuse_a_model_axis(name):
 
 
 def test_engine_refuses_what_waits():
-    """The engine on a ``data``/``pod`` axis waits for ``serve_param_fsdp``;
-    the VLM and tensor-parallel replicas no longer wait."""
-    model = build_model(tconfigs.get_config("gemma-2b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="serve_param_fsdp.*11b"):
-        ServeEngine(model, None, EngineConfig(n_slots=2, max_len=16,
-                                              mesh=Mesh((2, 1), ("data", "model"))))
+    """The name is the one this test had while the engine refused a
+    ``data``/``pod`` axis.  It takes one now: on a (data 2, model 1) mesh
+    placed at rank 1, the params are placed whole over ``data`` and the
+    cache keeps the lanes of data index 1.  The VLM and tensor-parallel
+    replicas no longer wait either."""
+    cfg = tconfigs.get_config("gemma-2b").reduced()
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    eng = ServeEngine(model, params, EngineConfig(
+        n_slots=2, max_len=16, mesh=Mesh((2, 1), ("data", "model")).place(1, "cpu")))
+    for got, want in zip(tree_leaves(eng.params), tree_leaves(params)):
+        assert torch.equal(got, want)
+    assert eng.cache["k"].shape == (cfg.n_layers, 1, 16, cfg.n_kv_heads, cfg.head_dim)
+    assert eng._lanes == slice(1, 2) and eng._lane_axes == ("data",)
     vlm = build_model(tconfigs.get_config("internvl2-76b").reduced(), device="cpu")
     with pytest.raises(RuntimeError, match="abstract"):  # past the refusal, to placement
         ServeEngine(vlm, None, EngineConfig(n_slots=2, max_len=16,

@@ -14,7 +14,7 @@ from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.dist import (P, NamedSharding, gather_tree, gpipe_apply, psum_compressed,
                               shard_tree, zero_layouts)
-from repro_torch.dist.sharding import tree_map2, tree_map_with_path
+from repro_torch.dist.sharding import tree_leaves, tree_map2, tree_map_with_path
 from repro_torch.ft import ElasticController
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import build_model
@@ -634,3 +634,71 @@ def fail_engine_step(rank, bad, after, how):
 
     engine.step = failing
     return rank
+
+
+def dp_engines(rank, shape, axes, cases, prompts, max_new):
+    """For each (name, np_params, page_size, n_slots) of ``cases``: the
+    token streams of an engine on the mesh ``shape`` over ``axes`` (any of
+    pod, data, model), and its local param and cache leaf shapes (in
+    ``tree_leaves`` order)."""
+    mesh = Mesh(shape, axes).bind()
+    out = []
+    for name, np_params, page_size, n_slots in cases:
+        cfg = get_config(name).reduced()
+        model = build_model(cfg, device="cpu")
+        params = params_from_jax(np_params, cfg, device="cpu")
+        engine = ServeEngine(model, params, EngineConfig(
+            n_slots=n_slots, max_len=32, prefill_chunk=4, page_size=page_size, mesh=mesh))
+        sessions = [engine.submit(p, max_new) for p in prompts]
+        engine.run()
+        out.append({"tokens": [s.out for s in sessions],
+                    "params": [tuple(t.shape) for t in tree_leaves(engine.params)],
+                    "cache": [tuple(t.shape) for t in tree_leaves(engine.cache)]})
+    return out
+
+
+def cell_collectives(rank, cases):
+    """For each (arch, config overrides, shape, seq_len, global_batch, mesh
+    shape, axes) of ``cases``: the dry-run cell's step run for real on this
+    rank's shards of seeded global arguments (floats N(0, 0.02), integers
+    0), its collectives recorded as they run (``{op: {calls, bytes}}``);
+    for a decode cell also the largest error of its outputs, relative to
+    each output's largest value, against the whole step's, sliced as the
+    cell's output layouts say."""
+    import dataclasses
+
+    from repro_torch.configs import get_shape
+    from repro_torch.dist import activation_sharding, collectives
+    from repro_torch.dist.sharding import local_index
+    from repro_torch.kernels.api import kernel_policy
+    from repro_torch.launch.cell import build_cell
+
+    gen = torch.Generator().manual_seed(0)
+
+    def real(_, t):
+        if t.dtype.is_floating_point:
+            return (torch.randn(t.shape, generator=gen) * 0.02).to(t.dtype)
+        return torch.zeros(t.shape, dtype=t.dtype)
+
+    out = []
+    for arch, kw, shape, seq, batch, mesh_shape, axes in cases:
+        cell = build_cell(get_config(arch).reduced().replace(**kw),
+                          dataclasses.replace(get_shape(shape), seq_len=seq, global_batch=batch),
+                          Mesh(mesh_shape, axes))
+        cell.mesh.bind()
+        whole = tree_map_with_path(real, cell.args)
+        args = shard_tree(whole, cell.in_shardings)
+        with collectives.recording(dry=False) as rec, activation_sharding(cell.mesh), \
+                kernel_policy(backend="torch"):
+            got = cell.fn(*args)
+        res = {"collectives": rec.by_op()}
+        if shape.startswith("decode"):  # against the whole step, sliced as the layouts say
+            with kernel_policy(backend="torch"):
+                want = build_model(cell.cfg, device="cpu").decode_step(*whole)
+            res["max_rel_err"] = max(
+                float((g.float() - w[local_index(sh, w.shape)].float()).abs().max()
+                      / w.float().abs().max().clamp_min(1e-30))
+                for g, w, sh in zip(tree_leaves(got), tree_leaves(want),
+                                    tree_leaves(cell.out_shardings)))
+        out.append(res)
+    return out

@@ -180,9 +180,11 @@ Phases, in order; any failure exits non-zero before the final line:
    of multi-GPU scaling), started by ``dist.run_ranks``; a failed or hung
    rank fails the run: (a) gemma-2b at full width and depth tensor-parallel
    on a 2-rank ``model`` mesh: the 4 x 1000 prefill under the guard's shadow
-   mode, each rank's 18 flash launches on its 4 query heads and the 1 KV
-   head, the gathered last logits within 0.1 of their max of the one-rank
-   flash prefill's; phase 10's requests through a dense and a paged engine
+   mode, its residual stream split on S (each rank's blocks take its
+   (4, 500, 2048) slice and gather S for attention and the MLP), each
+   rank's 18 flash launches on its 4 query heads and the 1 KV head over the
+   whole S, the last logits (the last rank's row broadcast) within 0.1 of
+   their max of the one-rank flash prefill's; phase 10's requests through a dense and a paged engine
    on the mesh, both ranks' tokens equal, and equal to phase 10's dense
    engine but where the one-rank model's top-2 margin lies within the
    distance between its logits row and the ranks' at that position (each
@@ -205,12 +207,15 @@ Phases, in order; any failure exits non-zero before the final line:
    conjugate collectives in the backward and ZeRO-3 gathering a layer at a
    time: (a) gemma-2b, (b) olmoe-1b-7b (its 64 experts 32 a rank), each at
    full width in float32 compute with the config's ZeRO stage (3) and
-   microbatches, its depth at most ``TP_TRAIN_MAX_LAYERS`` (gemma-2b 10 of
+   microbatches, its depth at most ``TP_TRAIN_MAX_LAYERS`` (gemma-2b 8 of
    18) and cut further by a printed reckoning of the bytes four ranks
    hold, one step of 4 x 512 random tokens (numpy seed 13) against
    the one-process step on the card at the same depth over the whole batch,
    taken before the ranks start: the loss and grad norm within 1e-3, the
-   params under (b)'s rule of phase 13; each rank's local state bytes, peak
+   params under (b)'s rule of phase 13; every rank's blocks take its
+   (rows, 256, d) slice of the stream (sequence parallelism over ``model``),
+   the bytes ``memory_allocated`` grows across each forward printed beside
+   the dry run's ``saves_bytes``; each rank's local state bytes, peak
    and collectives (calls and bytes through the host) printed, with where
    ZeRO-3 put ``data`` on the stacked leaves, a rank's CUDA context as
    measured beside the reckoning's, and the MoE's dropped assignments; the
@@ -396,10 +401,12 @@ TRAIN_LAUNCH_ARGV = ["--arch", "gemma-2b", "--steps", "2", "--batch", "2", "--se
 DIST_TIMEOUT = 900  # seconds a run of ranks may take before it fails the phase
 ZERO_BATCH, ZERO_SEQ = 2, 512  # (b)'s global batch: one 512-token sequence a rank
 ZERO_FREE_SHARE = 0.85  # of the card's free memory (b)'s two ranks may plan to fill
-# (b)'s depth at most, leaving phase 14 its time; odd, so that ZeRO's ``data``
-# falls on an inner dim of each stacked leaf (phase 14 (a)'s 18 put it on the
-# layer dim): the all-gather and reduce-scatter of a layer's slices under remat
-ZERO_MAX_LAYERS = 9
+# (b)'s depth at most, leaving phase 14 its time (9 until sequence
+# parallelism's gathers took the script past 900 s on an H100); odd, so that
+# ZeRO's ``data`` falls on an inner dim of each stacked leaf (phase 14 (a)'s
+# even depth puts it on the layer dim): the all-gather and reduce-scatter of
+# a layer's slices under remat
+ZERO_MAX_LAYERS = 7
 CARD_BYTES = 80e9  # the H100's memory, for (b)'s reckoning where no card is visible
 # phase 14: training on (data 2, model 2), four ranks sharing the card over gloo
 TP_TRAIN_MESH = (2, 2)  # (data, model)
@@ -407,8 +414,9 @@ TP_TRAIN_ARCHS = ("gemma-2b", "olmoe-1b-7b")  # (a), (b)
 TP_TRAIN_BATCH, TP_TRAIN_SEQ = 4, 512  # the global batch of the one step
 # the most layers (a) runs, cut for the script's time: 18 layers' step took
 # 53.8-92.2 s over gloo on an H100; an even depth keeps ZeRO-3's `data` on
-# the stacked leaves' layer dim (phase 13(b)'s odd depth puts it inside)
-TP_TRAIN_MAX_LAYERS = {"gemma-2b": 10}
+# the stacked leaves' layer dim (phase 13(b)'s odd depth puts it inside);
+# 10 until sequence parallelism's gathers took the script past 900 s
+TP_TRAIN_MAX_LAYERS = {"gemma-2b": 8}
 # a rank's CUDA context, outside the allocator's count: phase 14 measures it
 # (``rank_context_gb``) and prints it beside this; 0.786 GB a rank on an
 # H100 80GB HBM3 at 700 W, torch 2.11.0+cu128
@@ -1870,9 +1878,9 @@ def moe_drops():
     steps = {name: getattr(transformer, name)
              for name in ("lm_decode_chunk", "lm_decode_chunk_paged")}
 
-    def spy(params, x, cfg):
+    def spy(params, x, cfg, *rest):
         seen["drops"] = seen["drops"] + mlp.moe_drop_count(params, x, cfg, mask["real"])
-        return block(params, x, cfg)
+        return block(params, x, cfg, *rest)
 
     def masked(step):
         sig = inspect.signature(step)
@@ -3166,6 +3174,49 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+@contextlib.contextmanager
+def stream_watch(torch, dev):
+    """The transformer's residual stream on this rank: the shapes its blocks
+    take in ``lm_forward`` and ``lm_prefill`` (remat's recompute in the
+    backward left out), and the bytes ``torch.cuda.memory_allocated``
+    grows across each ``lm_forward``, what its graph keeps for the backward
+    (None off the card)."""
+    from repro_torch.models import transformer
+
+    names = ("_block_apply", "_block_prefill", "lm_forward", "lm_prefill")
+    real = {k: getattr(transformer, k) for k in names}
+    seen = {"block_inputs": [], "forward_grown_bytes": [], "inside": False}
+
+    def block(fn):
+        def run(cfg, p, x, positions):
+            if seen["inside"]:
+                seen["block_inputs"].append(tuple(x.shape))
+            return fn(cfg, p, x, positions)
+        return run
+
+    def whole(fn, grown):
+        def run(*args, **kw):
+            before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+            seen["inside"] = True
+            try:
+                out = fn(*args, **kw)
+            finally:
+                seen["inside"] = False
+            if grown and before is not None:
+                seen["forward_grown_bytes"].append(torch.cuda.memory_allocated(dev) - before)
+            return out
+        return run
+
+    for k in names:
+        setattr(transformer, k, block(real[k]) if k.startswith("_") else
+                whole(real[k], k == "lm_forward"))
+    try:
+        yield seen
+    finally:
+        for k, fn in real.items():
+            setattr(transformer, k, fn)
+
+
 def tp_rank(rank, conf, tokens, prompts, prefix, want_tokens) -> dict:
     """Phase 13 (a) on one rank of a 2-rank ``model`` mesh: gemma-2b's params
     made from the seed and sharded by ``param_specs``; the 4 x 1000 prefill
@@ -3212,7 +3263,7 @@ def tp_rank(rank, conf, tokens, prompts, prefix, want_tokens) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     with guard.isolated(guard.GuardConfig(hw=conf["hw"])), torch.inference_mode(), \
             kernel_policy(guard="shadow"), activation_sharding(mesh), \
-            collectives.recording(dry=False) as rec:
+            collectives.recording(dry=False) as rec, stream_watch(torch, dev) as stream:
         _util.reset_launch_counts()
         sync()
         t0 = time.perf_counter()
@@ -3224,6 +3275,7 @@ def tp_rank(rank, conf, tokens, prompts, prefix, want_tokens) -> dict:
         out["shadowed"] = dict(guard.state()._calls)
         out["quarantined"] = list(guard.quarantined_ops())
     out["prefill_collectives"] = rec.by_op()  # the top-level calls, for phase 16 (b)
+    out["block_inputs"] = sorted(set(stream["block_inputs"]))
     out["prefill_max_memory_allocated"] = torch.cuda.max_memory_allocated(dev) if on_card else None
     out["prefill_last"] = last.float().cpu()
     out["cache_kv_heads"] = int(cache["k"].shape[3])
@@ -3627,6 +3679,7 @@ def dist_path(torch, dev, tp1) -> dict:
           "launches": [r["prefill_launches"] for r in ranks],
           "shadowed": [r["shadowed"] for r in ranks],
           "guard": [r["guard"] for r in ranks],
+          "block_input": stream_rule("dist tp 2 prefill", cfg, ranks, LM_BATCH, LM_PROMPT, 2),
           "local_shapes": ranks[0]["local_shapes"], "cache_kv_heads": ranks[0]["cache_kv_heads"],
           "param_gb_tp1": ranks[0]["param_bytes_tp1"] / 1e9,
           "param_gb_local": [r["param_bytes_local"] / 1e9 for r in ranks],
@@ -3880,7 +3933,8 @@ def tp_train_rank(rank, conf, arch, layers, batch, ref_path) -> dict:
         sync = torch.cuda.synchronize if on_card else (lambda: None)
         sync()
         t0 = time.perf_counter()
-        with collectives.recording(dry=False) as rec:  # top-level calls, for phase 16 (b)
+        with collectives.recording(dry=False) as rec, \
+                stream_watch(torch, dev) as stream:  # top-level calls, for phase 16 (b)
             state, m = step(state, tb)
         sync()
         step_s = time.perf_counter() - t0
@@ -3890,6 +3944,8 @@ def tp_train_rank(rank, conf, arch, layers, batch, ref_path) -> dict:
     out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "step_s": step_s,
            "launches": _util.launch_counts(), "collectives": stats,
            "collectives_top": rec.by_op(),
+           "block_inputs": sorted(set(stream["block_inputs"])),
+           "forward_grown_bytes": stream["forward_grown_bytes"],
            "state_bytes_local": tree_bytes(state),
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev) if on_card else None}
     if on_card:  # the card's use while every rank holds its memory, and each allocator's part
@@ -3935,11 +3991,39 @@ def slices_rule(ranks, ref_numel, lr) -> dict:
     return {"elements": n, "elements_outside_256_ulps": outside, "max_abs_err": worst}
 
 
+def tp_train_cell(conf, arch, layers):
+    """Phase 14's train cell (``launch.cell``) of ``arch`` at ``layers``
+    layers, float32, on (data 2, model 2) over its global batch."""
+    import dataclasses
+
+    from repro_torch.configs import get_shape
+    from repro_torch.launch.cell import build_cell
+    from repro_torch.launch.mesh import Mesh
+
+    return build_cell(dist_cfg({**conf, "arch": arch}, n_layers=layers, dtype="float32"),
+                      dataclasses.replace(get_shape("train_4k"), name="tp_train",
+                                          seq_len=TP_TRAIN_SEQ, global_batch=TP_TRAIN_BATCH),
+                      Mesh(TP_TRAIN_MESH, ("data", "model")))
+
+
+def stream_rule(name, cfg, ranks, batch_rows, seq, tp) -> list:
+    """Every rank's blocks took its (rows, S / tp, d) slice of the stream
+    where the ``model`` size ``tp`` divides S, else the whole S: the shape,
+    or raises."""
+    want = [(batch_rows, seq // tp if seq % tp == 0 else seq, cfg.d_model)]
+    for i, r in enumerate(ranks):
+        if [tuple(x) for x in r["block_inputs"]] != want:
+            raise AssertionError(f"{name}: rank {i}'s blocks took {r['block_inputs']}, "
+                                 f"not {want}")
+    return want[0]
+
+
 def tp_train_path(torch, dev) -> dict:
     """Phase 14: training on (data 2, model 2) (see the module docstring),
     four ranks on the one card over gloo.  Returns the ranks' launch counts,
     which must be none."""
     from repro_torch.dist import run_ranks
+    from repro_torch.launch.cell import analytic_memory
 
     phase_start = time.perf_counter()
     conf = dist_conf(dev)
@@ -3983,6 +4067,15 @@ def tp_train_path(torch, dev) -> dict:
                 raise AssertionError(f"dist tp train {arch}: {k} {[r[k] for r in ranks]} against "
                                      f"the one-process step's {one[k]}")
         res["params"] = slices_rule(ranks, numel, conf["lr"])
+        cfg = dist_cfg({**conf, "arch": arch})
+        res["stream"] = {
+            "block_input": stream_rule(
+                f"dist tp train {arch}", cfg, ranks,
+                TP_TRAIN_BATCH // (TP_TRAIN_MESH[0] * cfg.train_microbatches), TP_TRAIN_SEQ,
+                TP_TRAIN_MESH[1]),
+            "forward_grown_bytes": [r["forward_grown_bytes"] for r in ranks],
+            "dry_run_saves_bytes": analytic_memory(
+                tp_train_cell(conf, arch, layers))["saves_bytes"]}
         print(f"dist tp train {arch} on (data 2, model 2), {TP_TRAIN_BATCH} x {TP_TRAIN_SEQ} "
               "tokens (float32 compute; gloo through host memory, not NVLink): " + json.dumps(res),
               flush=True)
@@ -3999,7 +4092,8 @@ def tp_train_path(torch, dev) -> dict:
 FAMILY_TP = 2  # (a)-(d): ranks on the family's `model` mesh
 # (a)'s depth, cut for the script's time: zamba2-7b's 6-layer super-blocks
 # and its 3-layer tail, 6 super-blocks of its 13 (81 layers took 43-46 s
-# a leg on an H100 over gloo)
+# a leg on an H100 over gloo); at 27 layers the seeded model's first greedy
+# token at tp 2 fell outside the token rule (an exact top-2 tie at one rank)
 FAMILY_LAYERS = {"zamba": 39}
 FAMILY_STEPS = {"zamba": 8, "vlm": VLM_STEPS, "whisper": WHISPER_STEPS, "xlstm": 8}
 FORWARD_STRIDE = 50  # (a), (d): the forward's logits compared every 50th position
@@ -4687,20 +4781,17 @@ def dry_run_checks(conf, measured) -> None:
 
     train = measured["tp_train"]["gemma-2b"]
     legs = (
-        ("phase 14 (a) train", dist_cfg({**conf, "arch": "gemma-2b"}, n_layers=train["layers"],
-                                        dtype="float32"),
-         dataclasses.replace(get_shape("train_4k"), name="tp_train", seq_len=TP_TRAIN_SEQ,
-                             global_batch=TP_TRAIN_BATCH),
-         Mesh(TP_TRAIN_MESH, ("data", "model")), train["collectives_top"],
-         train["max_memory_allocated"]),
-        ("phase 13 (a) prefill", dist_cfg(conf, attn_impl="pallas"),
-         dataclasses.replace(get_shape("prefill_32k"), name="tp_prefill", seq_len=LM_PROMPT,
-                             global_batch=LM_BATCH),
-         Mesh((2,), ("model",)), measured["tp_prefill"]["prefill_collectives"],
+        ("phase 14 (a) train", lambda: tp_train_cell(conf, "gemma-2b", train["layers"]),
+         train["collectives_top"], train["max_memory_allocated"]),
+        ("phase 13 (a) prefill", lambda: build_cell(
+            dist_cfg(conf, attn_impl="pallas"),
+            dataclasses.replace(get_shape("prefill_32k"), name="tp_prefill", seq_len=LM_PROMPT,
+                                global_batch=LM_BATCH),
+            Mesh((2,), ("model",))), measured["tp_prefill"]["prefill_collectives"],
          measured["tp_prefill"]["prefill_max_memory_allocated"]))
-    for name, cfg, shape, mesh, want, peak in legs:
+    for name, make, want, peak in legs:
         t0 = time.perf_counter()
-        cell = build_cell(cfg, shape, mesh)
+        cell = make()
         low = cell.lower(rank=0)
         got = collectives.by_op(low.calls)
         mem = analytic_memory(cell)

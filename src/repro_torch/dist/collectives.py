@@ -14,8 +14,8 @@ Under :func:`recording` every call of the six is recorded as a
 :class:`CollectiveCall`; a dry recording (the default) sends nothing and
 returns a ``meta`` tensor of the shape and dtype the call returns, so one
 rank's program runs on a mesh placed without a world (``Mesh.place``).
-Only the calls the program makes are recorded, not those a collective
-makes inside itself (gloo's reduce-scatter all-reduces).
+Only the calls the program makes are recorded: gloo's reduce-scatter, an
+all-reduce and a slice inside, is recorded once, as a reduce-scatter.
 """
 from __future__ import annotations
 
@@ -45,7 +45,6 @@ class Recorder:
     def __init__(self, dry: bool):
         self.dry = dry
         self.calls: list = []
-        self._depth = 0  # > 0 inside a recorded call that runs
 
     def by_op(self) -> dict:
         return by_op(self.calls)
@@ -101,7 +100,7 @@ def _recorded(summed: bool, meta_result):
         @functools.wraps(fn)
         def run(x, mesh, axis, *args, **kw):
             rec = _recorder
-            if rec is None or rec._depth:
+            if rec is None:
                 return fn(x, mesh, axis, *args, **kw)
             payload = x.numel() * x.element_size()
             wire = x.numel() * _sums(x).itemsize if summed else payload
@@ -109,11 +108,7 @@ def _recorded(summed: bool, meta_result):
                                             wire))
             if rec.dry:
                 return meta_result(x, mesh, axis, *args, **kw)
-            rec._depth += 1
-            try:
-                return fn(x, mesh, axis, *args, **kw)
-            finally:
-                rec._depth -= 1
+            return fn(x, mesh, axis, *args, **kw)
 
         return run
 
@@ -160,21 +155,25 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     return torch.cat([_unwire(p, x) for p in parts], dim=dim)
 
 
-@_recorded(False, lambda x, mesh, axis, dim=0: _meta(
+@_recorded(True, lambda x, mesh, axis, dim=0: _meta(
     _resized(x, dim, x.shape[dim] // axis_size(mesh, axis)), x))
 def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """This rank's ``dim`` slice (its ``axis`` index of ``n`` equal ones) of
-    the sum of ``x`` over the ``axis`` ranks.  NCCL reduce-scatters; over
-    gloo the staged host copy is all-reduced and sliced."""
+    the sum of ``x`` over the ``axis`` ranks, in ``x``'s dtype.  NCCL
+    reduce-scatters; over gloo the staged host copy is all-reduced and
+    sliced, faster on a host than gloo's own ``reduce_scatter_tensor``
+    (``python tools/gloo_ab.py dist`` times both)."""
     group = mesh.group(axis)
     n, i = axis_size(mesh, axis), mesh.index(axis)
     if dist.get_backend(group) == "gloo":
-        full = all_reduce(x, mesh, axis)
-        return full.narrow(dim, i * (x.shape[dim] // n), x.shape[dim] // n).contiguous()
-    xm = x.movedim(dim, 0).contiguous()
-    out = torch.empty((xm.shape[0] // n, *xm.shape[1:]), dtype=x.dtype, device=x.device)
+        y = x.to("cpu" if _gloo_host(x, group) else x.device, _sums(x), copy=True)
+        dist.all_reduce(y, group=group)
+        k = x.shape[dim] // n
+        return y.narrow(dim, i * k, k).to(x.device, x.dtype).contiguous()
+    xm = x.movedim(dim, 0).to(_sums(x)).contiguous()
+    out = torch.empty((xm.shape[0] // n, *xm.shape[1:]), dtype=xm.dtype, device=xm.device)
     dist.reduce_scatter_tensor(out, xm, group=group)
-    return out.movedim(0, dim).contiguous()
+    return out.movedim(0, dim).to(x.dtype).contiguous()
 
 
 @_recorded(False, lambda x, mesh, axis, src: _meta(x.shape, x))

@@ -22,7 +22,11 @@ the data-parallel step).
   current mesh, which the model's tensor-parallel collectives read.
   ``shard_act`` and ``shard_params`` keep the reference's signatures and are
   identities: under SPMD every rank already holds its part, so there is no
-  layout to constrain.
+  layout to constrain.  The one pin that moves data, the transformer's
+  residual stream on ``("dp", "sp", None)``, is carried out by the model
+  itself: ``tp.split_seq`` and the blocks' sequence-parallel entries and
+  exits (``dist/tensor_parallel.py``) hold each rank's S slice, split by
+  the same guard as :func:`_guarded_spec`.
 """
 from __future__ import annotations
 
@@ -127,7 +131,10 @@ def _guarded_spec(mesh: Mesh, shape, axes) -> PartitionSpec:
 # ---------------------------------------------------------------------------
 def shard_act(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """Identity.  The reference constrains ``x``'s layout for XLA; under SPMD
-    each rank already holds its part of ``x``, so there is nothing to pin."""
+    each rank already holds its part of ``x``, so there is nothing to pin.
+    Where a pin splits a tensor the program holds whole, the program splits
+    it: the reference's ``"sp"`` (``model`` on S of the transformer's
+    stream) is ``dist.tensor_parallel.split_seq`` and its pairs."""
     return x
 
 

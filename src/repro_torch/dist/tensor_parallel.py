@@ -20,6 +20,21 @@ leaves cut to the local heads) takes its own :func:`copy` before the partial
 read.  A sum over a split dim that every rank reads whole (a norm over the
 split channels) is :func:`sum_split`: summed forward, and its gradient
 summed back to each rank's partial.
+
+Sequence parallelism (the transformer's residual stream, which the
+reference pins to ``("dp", "sp", None)``, ``"sp"`` being ``model``): where
+the rule splits S (``model`` > 1 divides it), each rank holds its S slice
+of the stream between sublayers (:func:`split_seq` after the embedding,
+its gradient all-gathered).  A sublayer that needs every position gathers
+S on entry and hands back the summed S slice on exit (:func:`reduce_seq`,
+a reduce-scatter whose gradient all-gathers), Megatron's sequence-parallel
+pair.  The entry's backward depends on who reads the gathered tensor:
+:func:`copy_seq`, for a computation split on its readers' dim, reduce-
+scatters the gradient's partials; :func:`gather_seq`, for a tensor that
+also has a whole reader, keeps this rank's slice of the whole gradient and
+leaves the split readers their own :func:`copy`.  A replicated leaf read on
+the slice alone (a norm's scale) takes :func:`copy`, its gradient summed.
+Each is :func:`copy`, :func:`reduce` or the identity where S stays whole.
 """
 from __future__ import annotations
 
@@ -124,6 +139,95 @@ def sum_split(partial: torch.Tensor, dim: int) -> torch.Tensor:
     The reduce alone would hand each partial only this rank's share of the
     sum's gradient; the copy sums the shares first."""
     return copy(reduce(partial, dim), dim)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, partial):
+        ctx.mesh, ctx.partial, ctx.n = mesh, partial, x.shape[1]
+        return collectives.all_gather(x, mesh, "model", dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            return collectives.reduce_scatter(g, ctx.mesh, "model", dim=1), None, None
+        return g.narrow(1, ctx.mesh.index("model") * ctx.n, ctx.n), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """To this rank's S slice: the sum over the ranks' ``y`` (``summed``) or
+    ``y`` itself sliced; the gradient is gathered."""
+
+    @staticmethod
+    def forward(ctx, y, mesh, summed):
+        ctx.mesh = mesh
+        if summed:
+            return collectives.reduce_scatter(y, mesh, "model", dim=1)
+        n = y.shape[1] // mesh.shape["model"]
+        return y.narrow(1, mesh.index("model") * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives.all_gather(g, ctx.mesh, "model", dim=1), None, None
+
+
+def seq_len(s: int) -> Optional[int]:
+    """``s`` where the rule splits a stream of ``s`` positions, else None:
+    the ``s`` (or ``seq``) the sequence-parallel helpers and blocks take."""
+    return s if sharded(s) else None
+
+
+def split_seq(x: torch.Tensor) -> torch.Tensor:
+    """This rank's S slice of a stream ``x`` (B, S, ...) that every rank
+    holds whole, where the rule splits S; its gradient is gathered."""
+    if not sharded(x.shape[1]):
+        return x
+    return _ScatterSeq.apply(x, _tp_mesh(), False)
+
+
+def gather_seq(x: torch.Tensor, s: Optional[int]) -> torch.Tensor:
+    """The whole S (global size ``s``; None: ``x`` is whole, see
+    :func:`seq_len`) of this rank's slice ``x`` (B, S/n, ...), for readers
+    of which one at least is whole on every rank: its gradient, whole on
+    every rank (the split readers take their own :func:`copy`), keeps this
+    rank's slice."""
+    if s is None:
+        return x
+    return _GatherSeq.apply(x, _tp_mesh(), False)
+
+
+def copy_seq(x: torch.Tensor, dim: int, s: Optional[int]) -> torch.Tensor:
+    """:func:`copy` of a block input ``x`` (B, S/n, ...) read only by a
+    computation split on a dim of global size ``dim``, where S (global size
+    ``s``; None: ``x`` is whole) is split: S gathered, and the gradient's
+    partials reduce-scattered back to the slice (kept as it is where
+    ``dim`` is whole)."""
+    if s is None:
+        return copy(x, dim)
+    return _GatherSeq.apply(x, _tp_mesh(), sharded(dim))
+
+
+def reduce_seq(y: torch.Tensor, dim: int, s: Optional[int]) -> torch.Tensor:
+    """:func:`reduce` of a row-parallel output ``y`` (B, S, ...) into this
+    rank's S slice, where S (global size ``s``; None: the stream is whole)
+    is split: the partials' sum reduce-scattered (sliced, where the
+    contracted dim ``dim`` is whole and ``y`` with it); the gradient is
+    gathered."""
+    if s is None:
+        return reduce(y, dim)
+    return _ScatterSeq.apply(y, _tp_mesh(), sharded(dim))
+
+
+def last_seq(x: torch.Tensor, s: Optional[int]) -> torch.Tensor:
+    """The last position (B, 1, ...) of a stream of which ``x`` is this
+    rank's S slice (``s`` its global size; None: ``x`` is whole): where S is
+    split it lies on the last ``model`` rank, which broadcasts that row
+    alone.  Forward only (the prefill's): the broadcast carries no
+    gradient."""
+    if s is None:
+        return x[:, -1:]
+    mesh = _tp_mesh()
+    return collectives.broadcast(x[:, -1:].contiguous(), mesh, "model", mesh.shape["model"] - 1)
 
 
 def kv_heads_for_local_q(n_heads: int, n_kv_heads: int, kv_local: int) -> Optional[object]:

@@ -186,7 +186,10 @@ def _local_bytes(tree_shapes, tree_shardings) -> int:
 
 def analytic_memory(cell: "Cell") -> dict:
     """Expected per-device memory.  Exact for state/cache bytes (from the
-    actual shardings); formulaic for live activations, as the reference's."""
+    actual shardings); formulaic for live activations, as the reference's.
+    The saves and the prefill's live activations count S / ``model``: the
+    port's transformer holds its stream, and remat its block inputs, split
+    on S wherever ``model`` divides it (``tp.split_seq``)."""
     cfg, shape, mesh = cell.cfg, cell.shape, cell.mesh
     amap_dp = 1
     for n in ("pod", "data"):

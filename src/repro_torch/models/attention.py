@@ -18,7 +18,10 @@ the ranks.  Under autograd the block's input enters the split heads through
 ``tp.copy`` (its gradient summed over the ranks); KV heads kept whole are
 projected from the input as it is and take their own ``copy`` before the
 local query heads read them, since each rank's heads give them only part of
-their gradient.
+their gradient.  On the transformer's sequence-parallel stream
+(``attention_block(seq=S)``) the entry gathers S and the exit
+reduce-scatters it (``tp.copy_seq``/``tp.reduce_seq``); KV heads kept whole
+read the gathered input whole (``tp.gather_seq``).
 """
 from __future__ import annotations
 
@@ -201,19 +204,27 @@ def attention_block(
     kv_x: Optional[torch.Tensor] = None,
     kv_positions: Optional[torch.Tensor] = None,
     return_kv: bool = False,
+    seq: Optional[int] = None,
 ):
     """Full attention sub-layer (no residual/norm — caller owns those).
 
     ``kv_x`` switches to cross-attention (keys/values from encoder states).
     ``return_kv`` also returns the (k, v) a cache holds: this rank's KV heads
-    where the ``model`` axis divides them, else all of them.
+    where the ``model`` axis divides them, else all of them.  ``seq``: S's
+    global size when ``x`` is this rank's S slice of a sequence-parallel
+    stream (``tp.seq_len``; ``positions`` stay whole): S is gathered before
+    the projections and the output reduce-scattered back to the slice.
     """
     dt = x.dtype
+    s = seq
     kv_whole = not tp.sharded(cfg.n_kv_heads)  # read in part by the local query heads
-    xq = tp.copy(x, cfg.n_heads)
-    if kv_x is None:
-        xkv = x if kv_whole else xq
+    if kv_x is None and kv_whole:
+        x = tp.gather_seq(x, s)
+        xq, xkv = tp.copy(x, cfg.n_heads), x
+    elif kv_x is None:
+        xq = xkv = tp.copy_seq(x, cfg.n_heads, s)
     else:
+        xq = tp.copy(x, cfg.n_heads)
         xkv = kv_x if kv_whole else tp.copy(kv_x, cfg.n_kv_heads)
     q = torch.einsum("bsd,dhx->bshx", xq, params["wq"].to(dt))
     k = torch.einsum("bsd,dkx->bskx", xkv, params["wk"].to(dt))
@@ -230,7 +241,7 @@ def attention_block(
     if kv_whole:
         k, v = tp.copy(k, cfg.n_heads), tp.copy(v, cfg.n_heads)
     o = attention_impl(cfg)(q, local_kv(k, cfg), local_kv(v, cfg), causal=causal)
-    y = tp.reduce(out_proj(params, o, dt), cfg.n_heads)
+    y = tp.reduce_seq(out_proj(params, o, dt), cfg.n_heads, s)
     return (y, kv) if return_kv else y
 
 

@@ -10,7 +10,9 @@ expert's columns (``"ffn"``), are this rank's: every rank routes the whole
 :func:`moe_block` sums the parts over the ranks.  The router runs whole on
 every rank; only the combine branch (the dispatched tokens and their
 weights) enters the split computation through ``tp.copy``, since the aux
-loss's gradient is whole already.  The aux loss's router statistics are
+loss's gradient is whole already; on the transformer's sequence-parallel
+stream S is gathered before the router (``tp.gather_seq``) and the output
+reduce-scattered back to the slice.  The aux loss's router statistics are
 means over the global batch (``dist.data_parallel.batch_mean``), as under
 the reference's jitted step.
 """
@@ -108,8 +110,11 @@ def _route(params: Params, x: torch.Tensor, k: int) -> tuple:
     return probs, top_p / torch.clamp_min(top_p.sum(dim=-1, keepdim=True), 1e-9), top_e
 
 
-def moe_block(params: Params, x: torch.Tensor, cfg) -> tuple:
-    """x: (B, S, d) -> (y, aux_loss).
+def moe_block(params: Params, x: torch.Tensor, cfg, seq: int | None = None) -> tuple:
+    """x: (B, S, d) -> (y, aux_loss).  ``seq``: S's global size when ``x``
+    is this rank's S slice of a sequence-parallel stream: S is gathered
+    before the routing, which sees every position, and ``y`` is this
+    rank's slice.
 
     Group-local capacity-bounded dispatch (GShard semantics): each batch row
     is a routing group, so positions and capacity are computed per group
@@ -119,6 +124,7 @@ def moe_block(params: Params, x: torch.Tensor, cfg) -> tuple:
     ``cap``, which is sliced off and reads 0 on the way back, and their
     weight is not renormalised away.
     """
+    x = tp.gather_seq(x, seq)  # the router reads it whole
     dt = x.dtype
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
@@ -156,7 +162,7 @@ def moe_block(params: Params, x: torch.Tensor, cfg) -> tuple:
     gathered = out[group, flat_e, dump].reshape(b, s, k, d)
     w = (top_p * keep.reshape(b, s, k)).to(dt)  # (B, S, k)
     y = torch.einsum("bskd,bsk->bsd", gathered, w)
-    return tp.reduce(y, split), aux
+    return tp.reduce_seq(y, split, seq), aux
 
 
 def moe_block_dense(params: Params, x: torch.Tensor, cfg) -> tuple:

@@ -9,8 +9,14 @@ tensor-parallel mesh (``dist.activation_sharding``, params placed by
 ``dist.param_specs``) the forward is Megatron's: a vocab-sharded embedding
 lookup summed over the ranks, local attention heads and MLP columns with
 row-parallel sums, and the vocab-sharded logits gathered, each collective
-with its conjugate in the backward; the reference's sharding pins, which
-constrain layouts for XLA, have nothing to pin here.  Under ZeRO-3
+with its conjugate in the backward.  The full-sequence forwards
+(``lm_forward``, ``lm_prefill``) keep the residual stream split on S where
+the reference pins it to ``("dp", "sp", None)`` (``model`` divides S):
+each rank holds its (B, S/n, d) slice between sublayers, so remat's saved
+block inputs are slices; the norms run on the slice, each sublayer gathers
+S and hands back its summed slice (``tp.copy_seq``/``tp.reduce_seq``),
+and the positions stay whole.  Decode and the chunk steps keep S whole, as
+the reference's ``("dp", None)`` pins do.  Under ZeRO-3
 (``dist.zero.layerwise``) each layer's stored slices are gathered inside its
 block, the embedding, final norm and ``lm_head`` where they are used.
 The serving engine's steps — chunked decode (``lm_decode_chunk``) and its
@@ -80,13 +86,23 @@ def layer_params(layers: Params, i) -> Params:
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def _ffn(cfg, p: Params, x: torch.Tensor) -> tuple:
+def _norm(p: Params, x: torch.Tensor, cfg, seq: Optional[int]) -> torch.Tensor:
+    """The RMS norm of the stream x, this rank's S slice where ``seq`` is
+    S's global size (``tp.seq_len``): the replicated scale, read on the
+    slice alone, has its gradient summed over the ranks."""
+    scale = p["scale"] if seq is None else tp.copy(p["scale"], seq)
+    return rmsnorm({"scale": scale}, x, cfg.norm_eps)
+
+
+def _ffn(cfg, p: Params, x: torch.Tensor, seq: Optional[int] = None) -> tuple:
     """The block's feed-forward on the residual stream x (B, S, d), after its
-    norm: (y, aux), aux None for the dense MLP."""
-    xin = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+    norm: (y, aux), aux None for the dense MLP.  ``seq``: S's global size
+    when x is this rank's S slice (``tp.seq_len``); y is then its slice."""
+    xin = _norm(p["mlp_norm"], x, cfg, seq)
     if cfg.family == "moe":
-        return mlps.moe_block(p["moe"], xin, cfg)
-    return tp.reduce(mlps.mlp(p["mlp"], tp.copy(xin, cfg.d_ff), cfg), cfg.d_ff), None
+        return mlps.moe_block(p["moe"], xin, cfg, seq)
+    y = mlps.mlp(p["mlp"], tp.copy_seq(xin, cfg.d_ff, seq), cfg)
+    return tp.reduce_seq(y, cfg.d_ff, seq), None
 
 
 def _ffn_token(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -98,29 +114,32 @@ def _ffn_token(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block_apply(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
-    """Pre-norm block. x: (B,S,d). Returns (x, aux).  ZeRO-3's stored
+    """Pre-norm block. x: (B,S,d), this rank's S slice where the stream is
+    split (positions (B,S) whole). Returns (x, aux).  ZeRO-3's stored
     slices are gathered here, inside the checkpointed block: freed after
     it, gathered again when the backward recomputes it."""
     p = zero.whole_tree(p)
-    h = attn.attention_block(
-        p["attn"], rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg, positions, causal=True
-    )
+    seq = tp.seq_len(positions.shape[1])
+    h = attn.attention_block(p["attn"], _norm(p["attn_norm"], x, cfg, seq), cfg, positions,
+                             causal=True, seq=seq)
     x = x + h
-    y, aux = _ffn(cfg, p, x)
+    y, aux = _ffn(cfg, p, x, seq)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
 
 
 def _block_prefill(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
-    """Like _block_apply but also returns this layer's (k, v) for the cache."""
-    xin = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    """Like _block_apply but also returns this layer's (k, v) for the cache,
+    over the whole S."""
+    seq = tp.seq_len(positions.shape[1])
+    xin = tp.gather_seq(rmsnorm(p["attn_norm"], x, cfg.norm_eps), seq)
     q, k, v = attn.qkv_proj(p["attn"], xin, cfg)
     q = attn.apply_rope(q, positions, cfg.rope_theta)
     k = attn.apply_rope(k, positions, cfg.rope_theta)
     o = attn.attention_impl(cfg)(q, attn.local_kv(k, cfg), attn.local_kv(v, cfg), causal=True)
-    x = x + tp.reduce(attn.out_proj(p["attn"], o, x.dtype), cfg.n_heads)
-    return x + _ffn(cfg, p, x)[0], (k, v)
+    x = x + tp.reduce_seq(attn.out_proj(p["attn"], o, x.dtype), cfg.n_heads, seq)
+    return x + _ffn(cfg, p, x, seq)[0], (k, v)
 
 
 def _block_decode(cfg, p: Params, x: torch.Tensor, ck, cv, pos, plan):
@@ -159,12 +178,13 @@ def embed_tokens(params: Params, tokens: torch.Tensor, cfg,
     return x
 
 
-def lm_logits(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def lm_logits(params: Params, x: torch.Tensor, cfg, seq: Optional[int] = None) -> torch.Tensor:
     """Logits over the whole (padded) vocab: a vocab-sharded table's local
     logits are gathered along the vocab, as ``logits_sharding`` gathers
-    them for sampling."""
+    them for sampling.  ``seq``: S's global size when x is this rank's S
+    slice; S is gathered first, and the logits are whole."""
     dt = x.dtype
-    x = tp.copy(x, cfg.padded_vocab)
+    x = tp.copy_seq(x, cfg.padded_vocab, seq)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x, zero.whole(params["embed"]).to(dt))
     else:
@@ -180,13 +200,15 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg, frontend=None):
     x = embed_tokens(params, tokens, cfg, frontend)
     b, s, _ = x.shape
     positions = token_positions(b, s, x.device)
+    x = tp.split_seq(x)  # the reference's ("dp", "sp", None) pin
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block = remat(partial(_block_apply, cfg), cfg, cfg.remat_policy)
     for lp in layer_list(params["layers"]):
         x, a = block(lp, x, positions)
         aux = aux + a
-    x = rmsnorm(zero.whole_tree(params["final_norm"]), x, cfg.norm_eps)
-    return lm_logits(params, x, cfg), aux
+    seq = tp.seq_len(s)
+    x = _norm(zero.whole_tree(params["final_norm"]), x, cfg, seq)
+    return lm_logits(params, x, cfg, seq), aux
 
 
 def lm_loss(params: Params, batch: dict, cfg) -> torch.Tensor:
@@ -220,11 +242,12 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int, frontend
     lo, hi = tp.local_range(cfg.n_kv_heads)  # this rank's KV heads
     cache = attn.init_cache(cfg.replace(n_kv_heads=hi - lo), b, max_len, cfg.n_layers,
                             dtype=cdt, device=x.device)
+    x = tp.split_seq(x)
     for i in range(cfg.n_layers):
         x, (k, v) = _block_prefill(cfg, layer_params(params["layers"], i), x, positions)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
-    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+    x = rmsnorm(params["final_norm"], tp.last_seq(x, tp.seq_len(s)), cfg.norm_eps)
     return lm_logits(params, x, cfg)[:, 0], cache
 
 

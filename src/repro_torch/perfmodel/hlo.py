@@ -241,8 +241,9 @@ def recorded_stats(calls) -> CollectiveStats:
     """:class:`CollectiveStats` of the calls one rank made, each a
     ``dist.collectives.CollectiveCall`` (op, axis, n, payload bytes, wire
     bytes), under the ring conventions above with B the result's bytes as
-    the NCCL path moves them (``all_reduce`` and ``reduce`` sum 16-bit
-    floats in fp32, so their B is the fp32 bytes).  ``shift`` counts as a
+    the NCCL path moves them (``all_reduce``, ``reduce`` and
+    ``reduce_scatter`` sum 16-bit floats in fp32, so their B is the fp32
+    bytes).  ``shift`` counts as a
     collective-permute.  ``broadcast`` and ``reduce``, which have no HLO
     twin in the list, count B each: a pipelined ring passes the whole
     tensor over every link once, from the root out or towards it.  A call

@@ -4,7 +4,7 @@
 its collectives recorded, not sent.  Here each rank of a real gloo world on
 the CPU runs the same cell's step on its shards of seeded arguments, its
 collectives recorded as they run (``dist.collectives.recording(dry=False)``,
-top-level calls only: gloo's reduce-scatter all-reduces inside itself).
+the calls the program makes).
 Every rank's calls and payload bytes by op must equal its dry run's
 exactly: reduced gemma-2b and olmoe-1b-7b train cells on (data 2, model 2)
 at ZeRO 1-3 (and 2 microbatches at ZeRO 3), prefill and decode cells on

@@ -332,9 +332,9 @@ def _first_chunk_drops(monkeypatch, model, params, prompts, chunk) -> int:
     counts = []
     block = tmlp.moe_block
 
-    def spy(p, x, cfg):
+    def spy(p, x, cfg, *rest):
         counts.append(int(tmlp.moe_drop_count(p, x, cfg)))
-        return block(p, x, cfg)
+        return block(p, x, cfg, *rest)
 
     toks = torch.tensor([p[:chunk] for p in prompts], dtype=torch.int32)
     pos = torch.arange(chunk, dtype=torch.int32).expand(len(prompts), -1)

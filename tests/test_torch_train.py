@@ -110,9 +110,9 @@ def _trajectory(name, steps=3, microbatches=1):
     tstate = TrainState(tparams, topt.init(tparams))
     drops, block = [], tmlp.moe_block
 
-    def spy(p, x, cfg):
+    def spy(p, x, cfg, *rest):
         drops.append(int(tmlp.moe_drop_count(p, x, cfg)))
-        return block(p, x, cfg)
+        return block(p, x, cfg, *rest)
 
     records = []
     tmlp.moe_block = spy

@@ -585,6 +585,78 @@ def tp_family(rank, tp, cases, steps):
 
 
 # ---------------------------------------------------------------------------
+# sequence parallelism on a `model` mesh
+# ---------------------------------------------------------------------------
+def rs_inputs(rank, n):
+    """Rank ``rank``'s seeded bf16 input to the reduce-scatter check."""
+    g = torch.Generator().manual_seed(100 + rank)
+    return torch.randn((2 * n, 3 * n, 5), generator=g).bfloat16()
+
+
+def seq_parallel(rank, tp, cases):
+    """On a ``model`` mesh of ``tp`` ranks, for each (name, np_params, batch)
+    of ``cases`` (a ``reduced()`` transformer from global params placed by
+    ``param_specs``): the stream's shape at each block's input in
+    ``lm_forward`` and in ``lm_prefill``, the forward's logits, the
+    prefill's last logits, this rank's cache and the KV heads it holds, and
+    under remat's two policies (the backward on another thread) the loss
+    and this rank's grads, with each leaf's slice.  Then a bf16
+    ``reduce_scatter`` on dims 0 and 1 of ``rs_inputs`` with its recorded
+    calls, and the fp32 all-reduce of the same inputs."""
+    from repro_torch.dist import activation_sharding, collectives, param_specs
+    from repro_torch.dist import tensor_parallel as tpar
+    from repro_torch.models import transformer
+
+    torch.set_num_threads(1)  # tiny shapes: the ranks share the host's cores
+    mesh = Mesh((tp,), ("model",)).bind()
+    real = {k: getattr(transformer, k) for k in ("_block_apply", "_block_prefill")}
+    seen = []
+
+    def spy(fn):
+        def run(cfg, p, x, positions):
+            seen.append(tuple(x.shape))
+            return fn(cfg, p, x, positions)
+        return run
+
+    out = []
+    for name, np_params, batch in cases:
+        cfg = get_config(name).reduced()
+        params = params_from_jax(np_params, cfg, device="cpu")
+        specs = param_specs(params, cfg, mesh)
+        local = shard_tree(params, specs)
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        res = {"slices": _local_slices(specs, params)}
+        with activation_sharding(mesh):
+            for k, fn in real.items():
+                setattr(transformer, k, spy(fn))
+            try:
+                with torch.no_grad():
+                    logits, _ = transformer.lm_forward(local, tb["tokens"], cfg, tb.get("frontend"))
+                    res["forward_inputs"], seen[:] = list(seen), []
+                    last, cache = build_model(cfg, device="cpu").prefill(
+                        local, {k: v for k, v in tb.items() if k != "targets"})
+                    res["prefill_inputs"], seen[:] = list(seen), []
+            finally:
+                for k, fn in real.items():
+                    setattr(transformer, k, fn)
+            res.update(logits=logits.numpy(), prefill_last=last.numpy(), cache=_np(cache),
+                       kv_heads=tpar.local_range(cfg.n_kv_heads))
+            for policy in ("full", "dots"):
+                rcfg = cfg.replace(remat=True, remat_policy=policy)
+                loss, grads = _backward_elsewhere(build_model(rcfg, device="cpu").loss_fn, local,
+                                                  tb)
+                res[policy] = {"loss": float(loss), "grads": _np(grads)}
+        out.append(res)
+    x = rs_inputs(rank, tp)
+    with collectives.recording(dry=False) as rec:
+        rs = [collectives.reduce_scatter(x, mesh, "model", dim) for dim in (0, 1)]
+    summed = collectives.all_reduce(x.float(), mesh, "model")
+    return {"cases": out, "rs": [t.float().numpy() for t in rs],
+            "rs_dtypes": [str(t.dtype) for t in rs], "rs_calls": [tuple(c) for c in rec.calls],
+            "all_reduce_fp32": summed.numpy()}
+
+
+# ---------------------------------------------------------------------------
 # a rank group kept between calls
 # ---------------------------------------------------------------------------
 def remember(rank, x):

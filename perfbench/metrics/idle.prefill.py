@@ -1,0 +1,6 @@
+"""Share of the traced span of the prefill window with no kernel running."""
+from perfbench.yardstick import idle_share
+
+
+def read(records):
+    return idle_share(records["trace"])

@@ -19,6 +19,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import timing
+
 
 class DataPipeline:
     def __init__(
@@ -80,7 +82,8 @@ class DataPipeline:
             step = self._step
             self._step += 1
             return step, self._produce(step)
-        item = self._q.get()
+        with timing.span("pipeline.wait"):
+            item = self._q.get()
         if item[0] == "error":
             raise item[1]
         self._step = item[0] + 1

@@ -37,6 +37,7 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import timing
 from repro_torch.dist import tensor_parallel as tp
 
 from ..kernels.ref import ssd_chunked_ref
@@ -208,12 +209,14 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg, h0=None, return_state: bool =
         # the kernel owns chunking/padding and starts from a zero state
         from repro_torch.kernels import api
 
-        y = api.ssm_scan(u, a_log, b_, c_, chunk=cfg.ssm_chunk)
+        with timing.span("mamba.scan.kernel", device=x.device):
+            y = api.ssm_scan(u, a_log, b_, c_, chunk=cfg.ssm_chunk)
         h_final = None
     else:
         if h0 is None:
             h0 = torch.zeros((bsz, h, pd, n), dtype=torch.float32, device=x.device)
-        y, h_final = ssd_chunked(u, a_log, b_, c_, h0, cfg.ssm_chunk)
+        with timing.span("mamba.scan.plain", device=x.device):
+            y, h_final = ssd_chunked(u, a_log, b_, c_, h0, cfg.ssm_chunk)
     y = y + xh * _part(p["D"], d_in, h_lo, h_hi).to(dt)[None, None, :, None]
     y = y.reshape(bsz, s, hi - lo)
     y = _out_norm(p, y, cfg, d_in, lo, hi) * F.silu(z)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import timing
 from repro_torch.dist import tensor_parallel as tp
 from repro_torch.dist.data_parallel import batch_mean
 
@@ -129,39 +130,46 @@ def moe_block(params: Params, x: torch.Tensor, cfg, seq: int | None = None) -> t
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
 
-    probs, top_p, top_e = _route(params, x, k)  # (B, S, E), (B, S, k) x 2
+    # each span's CUDA events cost the card's host ~15 us a record: a
+    # serving step, paced by its host, times them on the host alone
+    dev = x.device if torch.is_grad_enabled() else None
+    with timing.span("moe.route", device=dev):
+        probs, top_p, top_e = _route(params, x, k)  # (B, S, E), (B, S, k) x 2
 
-    # load-balancing aux loss (Switch-style), computed globally
-    me = batch_mean(probs.mean(dim=(0, 1)))  # (E,)
-    ce = batch_mean(F.one_hot(top_e, e).float().sum(dim=(0, 1, 2)) / (b * s * k))
-    aux = e * torch.sum(me * ce)
+        # load-balancing aux loss (Switch-style), computed globally
+        me = batch_mean(probs.mean(dim=(0, 1)))  # (E,)
+        ce = batch_mean(F.one_hot(top_e, e).float().sum(dim=(0, 1, 2)) / (b * s * k))
+        aux = e * torch.sum(me * ce)
 
     cap = moe_capacity(cfg, s)
     expert_parallel = getattr(cfg, "moe_shard", "expert") == "expert"
     split = e if expert_parallel else cfg.d_ff  # the dim the experts' work is split on
     lo, hi = tp.local_range(e) if expert_parallel else (0, e)  # this rank's experts
     x, top_p = tp.copy(x, split), tp.copy(top_p, split)  # the combine branch
-    flat_e = top_e.reshape(b, s * k)  # (B, S*k) expert id per assignment
-    onehot = F.one_hot(flat_e, e)  # (B, S*k, E)
-    pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(-1)  # slot within (group, expert)
-    keep = pos < cap
-    dump = torch.where(keep, pos, cap)  # dropped -> scratch slot `cap`
+    with timing.span("moe.dispatch", device=dev):
+        flat_e = top_e.reshape(b, s * k)  # (B, S*k) expert id per assignment
+        onehot = F.one_hot(flat_e, e)  # (B, S*k, E)
+        pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(-1)  # slot within (group, expert)
+        keep = pos < cap
+        dump = torch.where(keep, pos, cap)  # dropped -> scratch slot `cap`
 
-    # scatter the token per assignment into (B, E, C+1, d); only the scratch
-    # slot can take two writes, and it is sliced off
-    group = torch.arange(b, device=x.device)[:, None]
-    buf = torch.zeros((b, e, cap + 1, d), dtype=dt, device=x.device)
-    buf[group, flat_e, dump] = x.repeat_interleave(k, dim=1)
-    buf = buf[:, lo:hi, :cap]  # (B, E_local, C, d)
+        # scatter the token per assignment into (B, E, C+1, d); only the
+        # scratch slot can take two writes, and it is sliced off
+        group = torch.arange(b, device=x.device)[:, None]
+        buf = torch.zeros((b, e, cap + 1, d), dtype=dt, device=x.device)
+        buf[group, flat_e, dump] = x.repeat_interleave(k, dim=1)
+        buf = buf[:, lo:hi, :cap]  # (B, E_local, C, d)
 
-    g = _act(cfg, torch.einsum("becd,edf->becf", buf, params["wi_gate"].to(dt)))
-    u = torch.einsum("becd,edf->becf", buf, params["wi_up"].to(dt))
-    out = torch.einsum("becf,efd->becd", g * u, params["wo"].to(dt))  # (B, E_local, C, d)
+    with timing.span("moe.experts", device=dev):
+        g = _act(cfg, torch.einsum("becd,edf->becf", buf, params["wi_gate"].to(dt)))
+        u = torch.einsum("becd,edf->becf", buf, params["wi_up"].to(dt))
+        out = torch.einsum("becf,efd->becd", g * u, params["wo"].to(dt))  # (B, E_local, C, d)
 
-    out = F.pad(out, (0, 0, 0, 1, lo, e - hi))  # the scratch slot, other ranks' experts: 0
-    gathered = out[group, flat_e, dump].reshape(b, s, k, d)
-    w = (top_p * keep.reshape(b, s, k)).to(dt)  # (B, S, k)
-    y = torch.einsum("bskd,bsk->bsd", gathered, w)
+    with timing.span("moe.combine", device=dev):
+        out = F.pad(out, (0, 0, 0, 1, lo, e - hi))  # the scratch slot, other ranks' experts: 0
+        gathered = out[group, flat_e, dump].reshape(b, s, k, d)
+        w = (top_p * keep.reshape(b, s, k)).to(dt)  # (B, S, k)
+        y = torch.einsum("bskd,bsk->bsd", gathered, w)
     return tp.reduce_seq(y, split, seq), aux
 
 

@@ -79,6 +79,7 @@ import torch
 
 from repro_torch import dist as rdist
 from repro_torch.dist import collectives
+from repro_torch.core import timing
 from repro_torch.dist.sharding import local_index, tree_leaves
 from repro_torch.kernels import guard as kguard
 from repro_torch.kernels.api import BACKENDS, current_policy, default_backend, kernel_policy
@@ -1046,51 +1047,59 @@ class ServeEngine:
         fed — positions below it come from shared prefix pages.
         """
         t0 = time.perf_counter()
-        n_slots, chunk = self.cfg.n_slots, self.cfg.prefill_chunk
-        spans = {lane: len(feed) - start for lane, _, feed, start in assignments}
-        longest = max(spans.values())
-        n_chunks = -(-longest // chunk)
-        toks = np.zeros((n_slots, n_chunks * chunk), np.int32)
-        poss = np.full((n_slots, n_chunks * chunk), self._pad_pos, np.int32)
-        for lane, _, feed, start in assignments:
-            n = len(feed) - start
-            toks[lane, :n] = feed[start:]
-            poss[lane, :n] = np.arange(start, len(feed), dtype=np.int32)
-        bt_args = (self._device_ints(self._bt),) if self.paged else ()
-        for c in range(n_chunks):
-            sl = slice(c * chunk, (c + 1) * chunk)
-            logits, self.cache = self._call_compiled(
-                "chunk", self.params, self.cache, *bt_args,
-                self._device_ints(toks[:, sl]), self._device_ints(poss[:, sl]),
-            )
-            ending = [
-                (lane, s, feed) for lane, s, feed, start in assignments
-                if c * chunk < len(feed) - start <= (c + 1) * chunk
-            ]
-            if ending:
-                rows = self._ending_rows(
-                    logits, {lane: spans[lane] - 1 - c * chunk for lane, _, _ in ending})
-            for lane, s, feed in ending:
-                row = rows[lane]
-                if self.cfg.nan_guard and not bool(torch.isfinite(row).all()):
-                    if self._nan_attr_tick != self.tick:
-                        self._nan_attr_tick = self.tick
-                        self._guard_attribute(
-                            RuntimeError(f"non-finite prefill logits on lane {lane}")
-                        )
-                    self._quarantine_lane(lane, s)  # retry the session whole
+        with timing.span("engine.prefill"):
+            n_slots, chunk = self.cfg.n_slots, self.cfg.prefill_chunk
+            spans = {lane: len(feed) - start for lane, _, feed, start in assignments}
+            longest = max(spans.values())
+            n_chunks = -(-longest // chunk)
+            timing.count("engine.prefill_fed", sum(spans.values()))
+            timing.count("engine.prefill_slots", n_slots * chunk * n_chunks)
+            toks = np.zeros((n_slots, n_chunks * chunk), np.int32)
+            poss = np.full((n_slots, n_chunks * chunk), self._pad_pos, np.int32)
+            for lane, _, feed, start in assignments:
+                n = len(feed) - start
+                toks[lane, :n] = feed[start:]
+                poss[lane, :n] = np.arange(start, len(feed), dtype=np.int32)
+            bt_args = (self._device_ints(self._bt),) if self.paged else ()
+            for c in range(n_chunks):
+                sl = slice(c * chunk, (c + 1) * chunk)
+                with timing.span("engine.prefill.enqueue"):
+                    logits, self.cache = self._call_compiled(
+                        "chunk", self.params, self.cache, *bt_args,
+                        self._device_ints(toks[:, sl]), self._device_ints(poss[:, sl]),
+                    )
+                ending = [
+                    (lane, s, feed) for lane, s, feed, start in assignments
+                    if c * chunk < len(feed) - start <= (c + 1) * chunk
+                ]
+                if not ending:
                     continue
-                tok = int(self.cfg.sampler(row))
-                s.status = ACTIVE
-                last = self.last_token.clone()
-                last[lane] = tok
-                self.last_token = last
-                self._set_pos(lane, len(feed))
-                self._lane_pos[lane] = len(feed)
-                s._record_token(tok)  # TTFT stamps here (first admission only)
-                reason = self._finish_reason(lane, s, tok)
-                if reason:
-                    self._finalize(lane, s, reason)
+                with timing.span("engine.prefill.read"):
+                    rows = self._ending_rows(
+                        logits, {lane: spans[lane] - 1 - c * chunk for lane, _, _ in ending})
+                    # each ending lane's first token, or None where its row is not finite
+                    firsts = [None if self.cfg.nan_guard
+                              and not bool(torch.isfinite(rows[lane]).all())
+                              else int(self.cfg.sampler(rows[lane])) for lane, _, _ in ending]
+                for (lane, s, feed), tok in zip(ending, firsts):
+                    if tok is None:
+                        if self._nan_attr_tick != self.tick:
+                            self._nan_attr_tick = self.tick
+                            self._guard_attribute(
+                                RuntimeError(f"non-finite prefill logits on lane {lane}")
+                            )
+                        self._quarantine_lane(lane, s)  # retry the session whole
+                        continue
+                    s.status = ACTIVE
+                    last = self.last_token.clone()
+                    last[lane] = tok
+                    self.last_token = last
+                    self._set_pos(lane, len(feed))
+                    self._lane_pos[lane] = len(feed)
+                    s._record_token(tok)  # TTFT stamps here (first admission only)
+                    reason = self._finish_reason(lane, s, tok)
+                    if reason:
+                        self._finalize(lane, s, reason)
         self.metrics.record_prefill(
             (time.perf_counter() - t0) * self.step_time_scale,
             sum(spans.values()), len(assignments),
@@ -1111,77 +1120,86 @@ class ServeEngine:
             )
         t_step0 = time.perf_counter()
         self.tick += 1
-        if self._op_quarantine:  # quarantined kernel ops due for a re-probe
-            self._heal_ops()
-        if self._quarantined:  # lanes whose bench time has elapsed come back
-            self._quarantined = {
-                lane: t for lane, t in self._quarantined.items() if t > self.tick
-            }
-        self._release_cancelled()
-        self._expire_deadlines()
-        admitted = self._admit()
-        if admitted:
-            self._prefill(admitted)
-        if self.paged:
-            for lane in range(self.cfg.n_slots):
-                if self.slots[lane] is not None:
-                    self._grow_lane(lane)
-        active = [i for i, s in enumerate(self.slots) if s is not None]
-        if not active:
-            self.last_step_s = (time.perf_counter() - t_step0) * self.step_time_scale
-            self.last_step_recompiled, self._recompiled = self._recompiled, False
-            return
-        t0 = time.perf_counter()
-        bt_args = (self._device_ints(self._bt),) if self.paged else ()
-        logits, self.cache = self._call_compiled(
-            "decode", self.params, self.cache, *bt_args, self.last_token, self.pos
-        )
-        if self._inject_nan_lanes:  # fault surface: poison the real logits
-            logits = logits.clone()
-            for lane in sorted(self._inject_nan_lanes):
-                if 0 <= lane < self.cfg.n_slots:
-                    logits[lane] = float("nan")
-        bad = []
-        if self.cfg.nan_guard:
-            finite = torch.isfinite(logits).all(dim=-1).cpu()
-            bad = [i for i in active if not bool(finite[i])]
-        if bad and self._nan_attr_tick != self.tick:
-            # a kernel op emitting non-finite values shows up in its probe:
-            # quarantine it per-op (the lanes still retry below either way)
-            self._nan_attr_tick = self.tick
-            self._guard_attribute(
-                RuntimeError(f"non-finite decode logits on lane(s) {bad}")
-            )
-        next_tok = self.cfg.sampler(logits)
-        toks = next_tok.cpu().numpy()  # waits for the step
-        t_decode = time.perf_counter() - t0
-        for i in bad:  # quarantine before pos advances: the lane pads out
-            self._quarantine_lane(i, self.slots[i])
-        ok = [i for i in active if i not in bad]
-        self.last_token = next_tok.to(torch.int32)
-        # pad lanes must stay at the sentinel (a pad-lane write would land in
-        # pool pages someone else owns); surviving active lanes advance by one
-        if self.paged:
-            adv = np.zeros((self.cfg.n_slots,), np.int32)
-            adv[ok] = 1
-            self.pos = self.pos + self._device_ints(adv)
-        else:
-            self.pos = self.pos + 1
-        for i in ok:
-            s = self.slots[i]
-            self._lane_pos[i] += 1
-            s._record_token(int(toks[i]))
-            reason = self._finish_reason(i, s, int(toks[i]))
-            if reason:
-                self._finalize(i, s, reason)
-        scale = self.step_time_scale
-        self.metrics.record_tick(
-            (time.perf_counter() - t0) * scale, t_decode * scale, len(active)
-        )
-        if self.paged:
-            self.metrics.record_pages(self.allocator.used)
-        self.last_step_s = (time.perf_counter() - t_step0) * scale
-        self.last_step_recompiled, self._recompiled = self._recompiled, False
+        with timing.span("engine.tick", tag=self.tick):
+            with timing.span("engine.admit"):
+                if self._op_quarantine:  # quarantined kernel ops due for a re-probe
+                    self._heal_ops()
+                if self._quarantined:  # lanes whose bench time has elapsed come back
+                    self._quarantined = {
+                        lane: t for lane, t in self._quarantined.items() if t > self.tick
+                    }
+                self._release_cancelled()
+                self._expire_deadlines()
+                admitted = self._admit()
+            if admitted:
+                self._prefill(admitted)
+            if self.paged:
+                with timing.span("engine.grow"):
+                    for lane in range(self.cfg.n_slots):
+                        if self.slots[lane] is not None:
+                            self._grow_lane(lane)
+            active = [i for i, s in enumerate(self.slots) if s is not None]
+            if not active:
+                self.last_step_s = (time.perf_counter() - t_step0) * self.step_time_scale
+                self.last_step_recompiled, self._recompiled = self._recompiled, False
+                return
+            t0 = time.perf_counter()
+            timing.count("engine.kv_live", sum(self._lane_pos[i] for i in active))
+            timing.count("engine.kv_gathered", self.cfg.n_slots * (
+                self._table_width * self.cfg.page_size if self.paged else self.cfg.max_len))
+            with timing.span("engine.decode.enqueue"):
+                bt_args = (self._device_ints(self._bt),) if self.paged else ()
+                logits, self.cache = self._call_compiled(
+                    "decode", self.params, self.cache, *bt_args, self.last_token, self.pos
+                )
+                if self._inject_nan_lanes:  # fault surface: poison the real logits
+                    logits = logits.clone()
+                    for lane in sorted(self._inject_nan_lanes):
+                        if 0 <= lane < self.cfg.n_slots:
+                            logits[lane] = float("nan")
+                bad = []
+                if self.cfg.nan_guard:
+                    finite = torch.isfinite(logits).all(dim=-1).cpu()
+                    bad = [i for i in active if not bool(finite[i])]
+                if bad and self._nan_attr_tick != self.tick:
+                    # a kernel op emitting non-finite values shows up in its probe:
+                    # quarantine it per-op (the lanes still retry below either way)
+                    self._nan_attr_tick = self.tick
+                    self._guard_attribute(
+                        RuntimeError(f"non-finite decode logits on lane(s) {bad}")
+                    )
+                next_tok = self.cfg.sampler(logits)
+            with timing.span("engine.decode.wait"):
+                toks = next_tok.cpu().numpy()  # waits for the step
+            t_decode = time.perf_counter() - t0
+            with timing.span("engine.emit"):
+                for i in bad:  # quarantine before pos advances: the lane pads out
+                    self._quarantine_lane(i, self.slots[i])
+                ok = [i for i in active if i not in bad]
+                self.last_token = next_tok.to(torch.int32)
+                # pad lanes must stay at the sentinel (a pad-lane write would land in
+                # pool pages someone else owns); surviving active lanes advance by one
+                if self.paged:
+                    adv = np.zeros((self.cfg.n_slots,), np.int32)
+                    adv[ok] = 1
+                    self.pos = self.pos + self._device_ints(adv)
+                else:
+                    self.pos = self.pos + 1
+                for i in ok:
+                    s = self.slots[i]
+                    self._lane_pos[i] += 1
+                    s._record_token(int(toks[i]))
+                    reason = self._finish_reason(i, s, int(toks[i]))
+                    if reason:
+                        self._finalize(i, s, reason)
+                scale = self.step_time_scale
+                self.metrics.record_tick(
+                    (time.perf_counter() - t0) * scale, t_decode * scale, len(active)
+                )
+                if self.paged:
+                    self.metrics.record_pages(self.allocator.used)
+                self.last_step_s = (time.perf_counter() - t_step0) * scale
+                self.last_step_recompiled, self._recompiled = self._recompiled, False
 
     # ------------------------------------------------------------------
     def has_work(self) -> bool:

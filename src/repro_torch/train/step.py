@@ -36,6 +36,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import timing
 from repro_torch.dist import collectives, zero
 from repro_torch.dist.sharding import activation_sharding, batch_shardings, local_index, tree_map2
 from repro_torch.models.common import tree_leaves, tree_map
@@ -121,11 +122,16 @@ def make_train_step(
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         params, opt_state = state
-        loss, grads = _loss_and_grads(loss_fn, params, batch, microbatches)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
-        lr = lr_fn(opt_state.step)
-        updates, opt_state = optimizer.update(grads, opt_state, params, lr)
-        params = optimizer.apply(params, updates)
+        dev = tree_leaves(params)[0].device
+        with timing.span("train.step"):
+            with timing.span("train.forward_backward", device=dev):
+                loss, grads = _loss_and_grads(loss_fn, params, batch, microbatches)
+            with timing.span("train.clip", device=dev):
+                grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            with timing.span("train.optimizer", device=dev):
+                lr = lr_fn(opt_state.step)
+                updates, opt_state = optimizer.update(grads, opt_state, params, lr)
+                params = optimizer.apply(params, updates)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         return TrainState(params, opt_state), metrics
 
@@ -178,35 +184,39 @@ def _data_parallel_step(loss_fn, optimizer, lr_fn, microbatches, clip_norm, grad
         return t.narrow(dim, mesh.index("data") * n, n)
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
-        stored, opt_state = state
-        local_batch = _rank_batch(batch, mesh, microbatches)
-        with activation_sharding(mesh), (zero.layerwise(stored, pstore) if layerwise
-                                         else contextlib.nullcontext()):
-            loss, grads = _loss_and_grads(loss_fn, stored, local_batch, microbatches)
-        loss = dp_mean(loss.float(), None)
-        if layerwise:  # ZeRO-3: a split leaf's summed over data in its gather's backward
-            grads = tree_map2(lambda g, sh: dp_mean(g, None, zero.data_dim(sh, g.ndim) is None),
-                              grads, pstore)
-        elif grad_shardings is None:
-            grads = tree_map(lambda g: dp_mean(g, None), grads)
-        else:  # ZeRO-2
-            grads = tree_map2(dp_mean, grads, grad_shardings)
-        whole_grads = grad_shardings is None and not layerwise
-        grads_m = tree_map2(lambda g, sh: moments_view(g, sh, whole_grads), grads, mspecs)
-        params_m = tree_map2(lambda p, sh: moments_view(p, sh, not layerwise), stored, mspecs)
-        gnorm = _global_norm(grads_m, mspecs, mesh)
-        scale = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
-        for g in tree_leaves(grads_m):
-            g.mul_(scale)
-        lr = lr_fn(opt_state.step)
-        updates, opt_state = optimizer.update(grads_m, opt_state, params_m, lr)
-        optimizer.apply(params_m, updates)
-        if not layerwise:  # every rank takes the other ranks' updated slices
-            for p, pm, sh in zip(tree_leaves(stored), tree_leaves(params_m),
-                                 tree_leaves(mspecs)):
-                dim = zero.data_dim(sh, p.ndim)
-                if dim is not None:
-                    p.copy_(collectives.all_gather(pm, mesh, "data", dim))
+        with timing.span("train.step"):
+            stored, opt_state = state
+            dev = mesh.device
+            local_batch = _rank_batch(batch, mesh, microbatches)
+            with timing.span("train.forward_backward", device=dev), activation_sharding(mesh), (
+                    zero.layerwise(stored, pstore) if layerwise else contextlib.nullcontext()):
+                loss, grads = _loss_and_grads(loss_fn, stored, local_batch, microbatches)
+            loss = dp_mean(loss.float(), None)
+            if layerwise:  # ZeRO-3: a split leaf's summed over data in its gather's backward
+                grads = tree_map2(lambda g, sh: dp_mean(g, None, zero.data_dim(sh, g.ndim) is None),
+                                  grads, pstore)
+            elif grad_shardings is None:
+                grads = tree_map(lambda g: dp_mean(g, None), grads)
+            else:  # ZeRO-2
+                grads = tree_map2(dp_mean, grads, grad_shardings)
+            whole_grads = grad_shardings is None and not layerwise
+            grads_m = tree_map2(lambda g, sh: moments_view(g, sh, whole_grads), grads, mspecs)
+            params_m = tree_map2(lambda p, sh: moments_view(p, sh, not layerwise), stored, mspecs)
+            with timing.span("train.clip", device=dev):
+                gnorm = _global_norm(grads_m, mspecs, mesh)
+                scale = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
+                for g in tree_leaves(grads_m):
+                    g.mul_(scale)
+            with timing.span("train.optimizer", device=dev):
+                lr = lr_fn(opt_state.step)
+                updates, opt_state = optimizer.update(grads_m, opt_state, params_m, lr)
+                optimizer.apply(params_m, updates)
+                if not layerwise:  # every rank takes the other ranks' updated slices
+                    for p, pm, sh in zip(tree_leaves(stored), tree_leaves(params_m),
+                                         tree_leaves(mspecs)):
+                        dim = zero.data_dim(sh, p.ndim)
+                        if dim is not None:
+                            p.copy_(collectives.all_gather(pm, mesh, "data", dim))
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         return TrainState(stored, opt_state), metrics
 

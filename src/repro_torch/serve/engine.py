@@ -170,7 +170,9 @@ class EngineConfig:
     - ``max_len`` — logical cap on prompt+generated length per request.
     - ``prefill_chunk`` — tokens per prefill step (a smaller chunk
       interleaves admission with decode sooner; a larger one amortizes
-      dispatch, and its logits are (n_slots, prefill_chunk, vocab)).
+      dispatch, and its logits are (rows, prefill_chunk, vocab): the paged
+      engine's rows are the lanes that feed tokens in that chunk, the dense
+      engine's every lane).
     - ``page_size`` — KV slots per page.  ``None`` selects the dense layout.
     - ``n_pages`` — page-pool size.  Defaults to
       ``n_slots * ceil(max_len / page_size)`` (worst case: every lane at
@@ -450,17 +452,20 @@ class ServeEngine:
 
         return decode, chunk
 
-    def _ending_rows(self, logits: torch.Tensor, rows: dict) -> torch.Tensor:
-        """(n_slots, V): row ``lane`` is the chunk step's ``logits`` at
-        ``rows[lane]`` for each lane in ``rows`` (the others are rows the
-        host does not read); gathered over the lane axes where they split."""
+    def _ending_rows(self, logits: torch.Tensor, rows: list, at: list) -> torch.Tensor:
+        """(len(rows), V): row ``k`` is the chunk step's ``logits`` at
+        position ``at[k]`` of the call's row ``rows[k]``.  Where the lanes
+        split over ranks (the dense engine's, whose call rows are its lanes),
+        each rank picks a position on every lane it holds, and the picks are
+        gathered before ``rows`` are taken."""
+        dev = logits.device
+        rows_dev = torch.as_tensor(rows, device=dev)
+        if not self._lane_axes:
+            return logits[rows_dev, torch.as_tensor(at, device=dev)]
         idx = np.zeros((self.cfg.n_slots,), np.int64)
-        for lane, j in rows.items():
-            idx[lane] = j
-        local = idx[self._lanes]
-        picked = logits[torch.arange(len(local), device=logits.device),
-                        torch.as_tensor(local).to(logits.device)]
-        return self._gather_lanes(picked)
+        idx[rows] = at
+        local = torch.as_tensor(idx[self._lanes], device=dev)
+        return self._gather_lanes(logits[torch.arange(len(local), device=dev), local])[rows_dev]
 
     def _scoped(self, fn: Callable, backend: Optional[str] = None) -> Callable:
         """``fn`` bound to the config's kernel policy: a fresh closure that
@@ -807,17 +812,15 @@ class ServeEngine:
                 f"one worst-case lane ({self.allocator.free_pages} free)"
             )
         pages = self.allocator.alloc(n_t)
-        # Prefill the prefix KV through a temporary block-table view: row 0
-        # maps to the prefix pages, every other row is pad (writes nothing,
-        # reads garbage logits nobody samples) — live lanes are untouched
-        # because writes target pool positions, not lanes.
+        # Prefill the prefix KV through a one-row block table that maps to
+        # the prefix pages — live lanes are untouched because writes target
+        # pool positions, not lanes.
         chunk = self.cfg.prefill_chunk
-        bt = self._bt.copy()
-        bt[0, :] = 0
+        bt = np.zeros((1, self._table_width), np.int32)
         bt[0, :n_t] = pages
         n_chunks = -(-len(tokens) // chunk)
-        toks = np.zeros((self.cfg.n_slots, n_chunks * chunk), np.int32)
-        poss = np.full((self.cfg.n_slots, n_chunks * chunk), self._pad_pos, np.int32)
+        toks = np.zeros((1, n_chunks * chunk), np.int32)
+        poss = np.full((1, n_chunks * chunk), self._pad_pos, np.int32)
         toks[0, : len(tokens)] = tokens
         poss[0, : len(tokens)] = np.arange(len(tokens), dtype=np.int32)
         bt_dev = self._device_ints(bt)
@@ -1038,8 +1041,17 @@ class ServeEngine:
     def _prefill(self, assignments: list) -> None:
         """Chunked batched prefill: every admitted prompt advances through
         the same ``decode_chunk`` call, ``prefill_chunk`` tokens per step.
-        Lanes not being prefilled carry the pad position sentinel, which
-        writes nothing — mid-generation neighbours are untouched.
+
+        The paged engine's call for a chunk holds only the lanes whose feed
+        still has tokens in it, one row each: the pool is shared and written
+        through the block table, so no other lane's pages are read or
+        written, and the rows shrink as shorter feeds end.  A lane's pad
+        entries (its last chunk's tail, on the pad sentinel) follow its real
+        tokens, so each row routes as one group exactly as it would in an
+        all-lane call.  The dense engine's cache is indexed by lane, and may
+        split its lanes over ``pod``/``data`` ranks, so every lane rides its
+        call: lanes not being prefilled carry the pad position sentinel,
+        which writes nothing — mid-generation neighbours are untouched.
 
         Each assignment is ``(lane, session, feed, start)``: ``feed`` is the
         token stream whose KV the lane must hold (prompt, plus prior output
@@ -1052,21 +1064,27 @@ class ServeEngine:
             spans = {lane: len(feed) - start for lane, _, feed, start in assignments}
             longest = max(spans.values())
             n_chunks = -(-longest // chunk)
-            timing.count("engine.prefill_fed", sum(spans.values()))
-            timing.count("engine.prefill_slots", n_slots * chunk * n_chunks)
             toks = np.zeros((n_slots, n_chunks * chunk), np.int32)
             poss = np.full((n_slots, n_chunks * chunk), self._pad_pos, np.int32)
             for lane, _, feed, start in assignments:
                 n = len(feed) - start
                 toks[lane, :n] = feed[start:]
                 poss[lane, :n] = np.arange(start, len(feed), dtype=np.int32)
-            bt_args = (self._device_ints(self._bt),) if self.paged else ()
-            for c in range(n_chunks):
+            # each chunk call's lanes, in the order of its rows
+            if self.paged:
+                calls = [[lane for lane, n in spans.items() if n > c * chunk]
+                         for c in range(n_chunks)]
+            else:
+                calls = [list(range(n_slots))] * n_chunks
+            timing.count("engine.prefill_fed", sum(spans.values()))
+            timing.count("engine.prefill_slots", chunk * sum(map(len, calls)))
+            for c, lanes in enumerate(calls):
                 sl = slice(c * chunk, (c + 1) * chunk)
                 with timing.span("engine.prefill.enqueue"):
+                    bt_args = (self._device_ints(self._bt[lanes]),) if self.paged else ()
                     logits, self.cache = self._call_compiled(
                         "chunk", self.params, self.cache, *bt_args,
-                        self._device_ints(toks[:, sl]), self._device_ints(poss[:, sl]),
+                        self._device_ints(toks[lanes, sl]), self._device_ints(poss[lanes, sl]),
                     )
                 ending = [
                     (lane, s, feed) for lane, s, feed, start in assignments
@@ -1075,12 +1093,11 @@ class ServeEngine:
                 if not ending:
                     continue
                 with timing.span("engine.prefill.read"):
-                    rows = self._ending_rows(
-                        logits, {lane: spans[lane] - 1 - c * chunk for lane, _, _ in ending})
+                    rows = self._ending_rows(logits, [lanes.index(lane) for lane, _, _ in ending],
+                                             [spans[lane] - 1 - c * chunk for lane, _, _ in ending])
                     # each ending lane's first token, or None where its row is not finite
-                    firsts = [None if self.cfg.nan_guard
-                              and not bool(torch.isfinite(rows[lane]).all())
-                              else int(self.cfg.sampler(rows[lane])) for lane, _, _ in ending]
+                    firsts = [None if self.cfg.nan_guard and not bool(torch.isfinite(row).all())
+                              else int(self.cfg.sampler(row)) for row in rows]
                 for (lane, s, feed), tok in zip(ending, firsts):
                     if tok is None:
                         if self._nan_attr_tick != self.tick:

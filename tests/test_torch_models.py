@@ -345,13 +345,20 @@ def _first_chunk_drops(monkeypatch, model, params, prompts, chunk) -> int:
     return sum(counts)
 
 
-@pytest.mark.parametrize("page_size", [None, 4])
-def test_moe_engine_streams_match_reference_with_drops(page_size, monkeypatch):
+@pytest.mark.parametrize("page_size, mix", [
+    (None, "at_once"), (4, "at_once"), (None, "staggered"), (4, "staggered"), (4, "preempt")],
+    ids=["None", "4", "None-staggered", "4-staggered", "4-preempt"])
+def test_moe_engine_streams_match_reference_with_drops(page_size, mix, monkeypatch):
     """olmoe-1b-7b reduced with one shared direction added to every embedding
     row, so tokens route alike and a prefill chunk of 32 overflows its
     capacity of 24 (a decode step's group of one never does).  Prompts are
     prefilled in the same 32-token chunks by both engines, so the same
-    assignments drop, and every stream equals the reference's."""
+    assignments drop, and every stream equals the reference's.  The first
+    tick's prompts of 40 and 70 tokens end in chunks 2 and 3, so the paged
+    engine's calls shrink from 2 rows to 1, each row its own routing group;
+    ``staggered`` submits one prompt a tick, and ``preempt`` runs a pool too
+    small for both lanes, so a preempted request resumes on its prompt and
+    its output."""
     from repro import serve as jserve
     from repro_torch import serve as tserve
 
@@ -365,16 +372,23 @@ def test_moe_engine_streams_match_reference_with_drops(page_size, monkeypatch):
     config = dict(n_slots=2, max_len=96, prefill_chunk=32)
     if page_size:
         config.update(page_size=page_size, n_pages=2 * 96 // page_size + 4)
+    if mix == "preempt":
+        config.update(n_pages=30)
+    arrive = 1 if mix == "staggered" else len(prompts)
 
     def drive(eng):
-        ss = [eng.submit(p, 6) for p in prompts]
-        eng.run(400)
-        return [s.out for s in ss], eng.summary()["generated_tokens"]
+        ss = []
+        while len(ss) < len(prompts) or eng.has_work():
+            ss += [eng.submit(p, 6) for p in prompts[len(ss):len(ss) + arrive]]
+            eng.step()
+            assert eng.tick < 400
+        return [s.out for s in ss], eng.summary()["generated_tokens"], eng.summary()["preemptions"]
 
     want = drive(jserve.ServeEngine(jbuild(jcfg), jax.tree.map(jnp.asarray, jp),
                                     jserve.EngineConfig(**config)))
     model = build_model(tcfg, device="cpu")
     got = drive(tserve.ServeEngine(model, tp, tserve.EngineConfig(**config)))
     assert got == want and got[1] == 6 * len(prompts)
+    assert (got[2] > 0) == (mix == "preempt")
     # real tokens' assignments drop in the chunks both engines prefilled
     assert _first_chunk_drops(monkeypatch, model, tp, prompts, config["prefill_chunk"]) > 0

@@ -6,7 +6,11 @@ on gemma-2b reduced (the reference's ``lm_init`` weights carried across by
 "nvidia-h100-sxm")``, 3.05e-5), and the engine's paged token streams —
 page sizes, pool exhaustion with preemption, shared prefixes with
 copy-on-write forks — identical to the reference engine's for the seeded
-workloads of ``tests/test_paged_kv.py``."""
+workloads of ``tests/test_paged_kv.py``, on mixes whose admissions
+stagger over ticks as well; and the paged engine's chunk calls, spied on,
+holding only the rows that feed tokens in each chunk."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -325,7 +329,21 @@ def test_pad_sentinel_writes_nothing(gemma):
 # ---------------------------------------------------------------------------
 # engine level: the reference engine's token streams
 # ---------------------------------------------------------------------------
-def _engines(gemma, prompts, *, prefix=None, max_new=8, **cfg):
+def _serve(eng, prompts, max_new=8, arrive=None):
+    """Every prompt through ``eng`` to its end, all submitted before the
+    first tick or, with ``arrive``, that many before each tick (admissions
+    staggered over ticks); returns the token streams."""
+    arrive, sessions = arrive or len(prompts), []
+    while len(sessions) < len(prompts) or eng.has_work():
+        sessions += [eng.submit(p, max_new_tokens=max_new)
+                     for p in prompts[len(sessions):len(sessions) + arrive]]
+        eng.step()
+        assert eng.tick < 500
+    assert all(s.done for s in sessions)
+    return [s.out for s in sessions]
+
+
+def _engines(gemma, prompts, *, prefix=None, max_new=8, arrive=None, **cfg):
     """The same requests through the reference's engine and the port's;
     returns both engines and both token streams."""
     (_, jmodel, jparams), (_, tmodel, tparams) = gemma
@@ -334,10 +352,7 @@ def _engines(gemma, prompts, *, prefix=None, max_new=8, **cfg):
         eng = serve.ServeEngine(model, params, serve.EngineConfig(**cfg))
         if prefix is not None:
             eng.register_prefix(prefix)
-        sessions = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
-        eng.run()
-        assert all(s.done for s in sessions)
-        out.append((eng, [s.out for s in sessions]))
+        out.append((eng, _serve(eng, prompts, max_new, arrive)))
     (je, jout), (te, tout) = out
     return je, te, jout, tout
 
@@ -351,26 +366,33 @@ def _same_summary(je, te):
     assert {k: ts[k] for k in SUMMARY_KEYS} == {k: js[k] for k in SUMMARY_KEYS}
 
 
-@pytest.mark.parametrize("page_size", [4, 8])
-def test_engine_paged_matches_dense_and_the_reference(gemma, page_size):
+# ``arrive`` 2 staggers admissions over ticks: the first tick's prompts of 5
+# and 9 tokens end in chunks 2 and 3 of chunk 4, so the paged engine's chunk
+# calls shrink from 2 rows to 1 while the dense engine's hold every lane
+STAGGERED = pytest.mark.parametrize("arrive", [None, 2], ids=["at_once", "staggered"])
+
+
+@pytest.mark.parametrize("page_size, arrive", [(4, None), (8, None), (4, 2), (8, 2)],
+                         ids=["4", "8", "4-staggered", "8-staggered"])
+def test_engine_paged_matches_dense_and_the_reference(gemma, page_size, arrive):
     (jcfg, _, _), (_, tmodel, tparams) = gemma
     prompts = _prompts(jcfg, 6, [5, 9, 3, 7, 11, 4], seed=0)
     base = dict(n_slots=3, max_len=24, prefill_chunk=4)
-    je, te, jout, tout = _engines(gemma, prompts, page_size=page_size, **base)
+    je, te, jout, tout = _engines(gemma, prompts, page_size=page_size, arrive=arrive, **base)
     assert tout == jout
     _same_summary(je, te)
     assert te.allocator.used == 0 and te.summary()["pages_peak"] > 0
     dense = tserve.ServeEngine(tmodel, tparams, tserve.EngineConfig(**base))
-    ss = [dense.submit(p, 8) for p in prompts]
-    dense.run()
-    assert [s.out for s in ss] == tout
+    assert _serve(dense, prompts, arrive=arrive) == tout
 
 
-def test_engine_page_exhaustion_preempts_cleanly_as_the_reference(gemma):
+@STAGGERED
+def test_engine_page_exhaustion_preempts_cleanly_as_the_reference(gemma, arrive):
+    """The preempted requests resume on a feed of their prompt and output."""
     (jcfg, _, _), _ = gemma
     prompts = _prompts(jcfg, 6, [5, 9, 3, 7, 11, 4], seed=0)
     je, te, jout, tout = _engines(gemma, prompts, n_slots=3, max_len=24, prefill_chunk=4,
-                                  page_size=4, n_pages=8)
+                                  page_size=4, n_pages=8, arrive=arrive)
     assert tout == jout
     _same_summary(je, te)
     assert te.summary()["preemptions"] > 0 and te.allocator.used == 0
@@ -378,13 +400,14 @@ def test_engine_page_exhaustion_preempts_cleanly_as_the_reference(gemma):
             == [s.stats.preemptions for s in je.finished])
 
 
-def test_engine_shared_prefix_fork_identical_to_the_reference(gemma):
+@STAGGERED
+def test_engine_shared_prefix_fork_identical_to_the_reference(gemma, arrive):
     (jcfg, _, _), _ = gemma
     rng = np.random.default_rng(7)
     pfx = [int(t) for t in rng.integers(1, jcfg.vocab_size, 6)]
     prompts = [pfx + t for t in _prompts(jcfg, 4, [4, 2, 5, 3], seed=8)]
     je, te, jout, tout = _engines(gemma, prompts, prefix=pfx, n_slots=3, max_len=24,
-                                  prefill_chunk=4, page_size=4)
+                                  prefill_chunk=4, page_size=4, arrive=arrive)
     assert tout == jout
     _same_summary(je, te)
     s = te.summary()
@@ -411,6 +434,48 @@ def test_engine_prefix_page_boundary_cow_as_the_reference(gemma):
     plain.run()
     assert [s.out for s in ss] == tout
     assert plain.summary()["prefill_tokens"] > te.summary()["prefill_tokens"]
+
+
+def _spied(model, name: str):
+    """``model`` with its step ``name`` wrapped to record each call's
+    (rows, positions)."""
+    calls = []
+    step = getattr(model, name)
+
+    def spy(*args):
+        calls.append((args[-1].shape[0], args[-1].clone()))
+        return step(*args)
+
+    return dataclasses.replace(model, **{name: spy}), calls
+
+
+@pytest.mark.parametrize("page_size, step, rows", [(4, "decode_chunk_paged", [2, 2, 1, 1, 1]),
+                                                   (None, "decode_chunk", [3] * 5)])
+def test_each_chunk_call_holds_the_rows_that_feed_it(gemma, page_size, step, rows):
+    """Prompts of 5 and 9 tokens at chunk 4 feed 2, 2, then 1 row; a 7-token
+    prompt admitted alone a tick later feeds 1 row in each of its 2 chunks.
+    The paged engine's calls hold exactly those rows, each with a real token
+    at its first position; the dense engine's hold its 3 lanes."""
+    (jcfg, _, _), (_, tmodel, tparams) = gemma
+    model, calls = _spied(tmodel, step)
+    eng = tserve.ServeEngine(model, tparams, tserve.EngineConfig(
+        n_slots=3, max_len=32, prefill_chunk=4, page_size=page_size))
+    _serve(eng, _prompts(jcfg, 3, [5, 9, 7], seed=5), arrive=2)
+    assert [n for n, _ in calls] == rows
+    pad = eng._pad_pos  # 32 in both layouts
+    assert sum(int((pos < pad).sum()) for _, pos in calls) == 5 + 9 + 7
+    if page_size:
+        assert all(bool((pos[:, 0] < pad).all()) for _, pos in calls)
+
+
+def test_register_prefix_calls_the_step_with_one_row(gemma):
+    _, (_, tmodel, tparams) = gemma
+    model, calls = _spied(tmodel, "decode_chunk_paged")
+    eng = tserve.ServeEngine(model, tparams, tserve.EngineConfig(
+        n_slots=3, max_len=32, prefill_chunk=4, page_size=4))
+    eng.register_prefix(list(range(1, 10)))
+    assert [n for n, _ in calls] == [1, 1, 1]
+    assert int((calls[-1][1] < eng._pad_pos).sum()) == 1
 
 
 def test_engine_config_validation_as_the_reference():

@@ -121,9 +121,10 @@ def _serve(gemma, prompts, ticks, traced_tick=None):
 
 
 def test_one_paged_tick_records_its_phases_and_counts(gemma):
-    """Prompts of 5 and 9 tokens, chunk 4, 4 lanes: 3 chunks of 4 tokens
-    over the 4 lanes compute 48 slots for 14 fed tokens; the first prompt
-    ends in chunk 2, the second in chunk 3.  The decode then holds 5 + 9 live
+    """Prompts of 5 and 9 tokens, chunk 4, 4 lanes: 3 chunks of 4 tokens,
+    computed on the lanes that feed each (2, 2, then 1 row), compute
+    (2 + 2 + 1) x 4 = 20 slots for 14 fed tokens; the first prompt ends in
+    chunk 2, the second in chunk 3.  The decode then holds 5 + 9 live
     positions against 4 lanes x 8 pages x 4 positions gathered."""
     prompts = [list(range(1, 6)), list(range(11, 20))]
     _serve(gemma, prompts, 1, traced_tick=1)
@@ -141,7 +142,7 @@ def test_one_paged_tick_records_its_phases_and_counts(gemma):
             assert s["parent"] == tick["id"]
         elif s["name"].startswith("engine.prefill."):
             assert s["parent"] == prefill["id"]
-    assert store["counters"] == {"engine.prefill_fed": 14, "engine.prefill_slots": 48,
+    assert store["counters"] == {"engine.prefill_fed": 14, "engine.prefill_slots": 20,
                                  "engine.kv_live": 14, "engine.kv_gathered": 128}
 
 
